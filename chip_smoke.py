@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
    gives them, and the torch and CUDA versions;
 2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc;
 3. kernels vs plain — each CUDA kernel against its plain PyTorch version
-   on the card, bit for bit, at edge shapes and the main path's shapes;
+   on the card, bit for bit, at edge shapes (the cases of
+   ``pushcdn_tpu_torch/testing/kernel_cases.py``) and the main path's
+   shapes;
 4. the slice at full size — the socket-free ``DevicePlane`` with 4096 user
    slots, 256 topics (8 mask words), 3 topics per user drawn uniform and
    zipf(1/rank), 2048 frames per tick (90% broadcast, 10% direct) over the
@@ -22,8 +24,9 @@ Phases, each printing one JSON line:
    dense tick through ``routing_step_single``;
 6. times — each kernel at the shapes of phases 4 and 5 (CUDA events
    around 5 groups of 20 back-to-back launches queued behind a GPU spin;
-   the median group's mean), its plain version's time, its bound, its
-   launches per tick, for the dense kernel the time of a plain
+   the median group's mean), its plain version's time, its bound counted
+   for these inputs (``bytes_ms``, ``ops_ms``, ``bound_ms``, ``bound_by``),
+   its launches per tick, for the dense kernel the time of a plain
    ``fill_`` of its output (the floor of a kernel that only writes those
    bytes), and ``step()`` split into host packing, device step and pair
    extraction.
@@ -44,10 +47,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
-# 32-bit rate outside the tensor cores, used for the integer work here
+# H100 SXM peaks. Memory: NVIDIA's data sheet, 3.35 TB/s of HBM3. The
+# kernels' work is 32-bit integer logic and compares: the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table gives
+# compute capability 9.0 64 results per clock per SM for 32-bit integer
+# add, compare, min/max and bitwise AND/OR/XOR. Times the SM count and
+# the card's maximum SM clock, both read at run time (132 SMs x 1980 MHz
+# = 16.7e12 per second on the H100 SXM).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_OPS_PER_CLOCK_PER_SM = 64
+H100_SMS = 132
+H100_MAX_SM_CLOCK_HZ = 1.98e9
 TIMING_GROUPS = 5
 TIMING_REPS = 20
 SPIN_CYCLES = 200_000_000  # ~0.1 s of GPU spin to queue timed calls behind
@@ -127,26 +137,77 @@ def write_floor_ms(U: int, N: int, device) -> float:
     return time_ms(lambda: out.fill_(True))[0]
 
 
-def bound(bytes_moved: int, ops: int):
+def int32_peak(sms: int = H100_SMS,
+               clock_hz: float = H100_MAX_SM_CLOCK_HZ) -> float:
+    """32-bit integer operations per second: 64 a clock on each SM."""
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * clock_hz
+
+
+def bound(bytes_moved: int, ops: int, peak_ops: float) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    memory rate and operations over the integer rate ``peak_ops``."""
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak_ops * 1e3
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def dense_bound(U: int, N: int, W: int):
-    # out U*N bytes; umask, local, tmask, kind, dest each read once;
-    # per cell W ANDs, W-1 ORs, a compare and four selects/ANDs
-    return bound(U * N + U * (4 * W + 1) + N * (4 * W + 8),
-                 U * N * (2 * W + 4))
+def dense_work(user_masks, local, frame_tmask, kind, dest):
+    """Bytes and integer operations the dense delivery matrix needs for
+    these inputs (torch tensors, as the kernel takes them).
+
+    Bytes: each input read once, the bool[U, N] output written once.
+    Operations: one per cell for its output byte; for every cell of a
+    local user, one per non-zero mask word of a broadcast frame (a LOP3
+    folds acc | umask & tmask) and one compare for a direct frame."""
+    from pushcdn_tpu_torch.ops.delivery_kernel import mask_words
+    from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+    U, N, W = user_masks.shape[0], frame_tmask.shape[0], mask_words(user_masks)
+    nnz = (frame_tmask.reshape(N, W) != 0).sum(dim=1)
+    per_user = (int(nnz[kind == KIND_BROADCAST].sum())
+                + int((kind == KIND_DIRECT).sum()))
+    ops = U * N + int(local.sum()) * per_user
+    return U * N + U * (4 * W + 1) + N * (4 * W + 8), ops
 
 
-def ragged_bound(G: int, Wp: int, U: int, N: int, W: int):
-    # pages, walk lists, user and frame tables read once; out_user and
-    # counts written once; per lane W ANDs/ORs and about six compares
-    return bound(G * 512 + 8 * Wp + U * (4 * W + 1) + N * (4 * W + 8)
-                 + Wp * 516, Wp * 128 * (2 * W + 6))
+def ragged_work(pages, walk_page, walk_frame, local, user_masks,
+                frame_tmask, kind, dest):
+    """Bytes and integer operations the ragged walk needs for these
+    inputs (torch tensors, as the kernel takes them).
+
+    Bytes: the distinct pages the walk visits (512 bytes each), its two
+    index lists, the table rows (W mask words and the local flag) of its
+    distinct in-range candidates and the rows (W mask words, kind, dest)
+    of its distinct frames, each read once; out_user and counts written
+    once. Rows whose page or frame index is out of range read no page.
+    Operations: per lane a range compare and the select of its output;
+    per in-range candidate the local test, plus one per non-zero mask
+    word of a broadcast frame or one compare for a direct frame."""
+    import torch
+    from pushcdn_tpu_torch.ops.delivery_kernel import mask_words
+    from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+    G, Wp, U, N = (pages.shape[0], walk_page.shape[0], local.shape[0],
+                   kind.shape[0])
+    W = mask_words(user_masks)
+    lanes = pages.shape[1]
+    ok = ((walk_page >= 0) & (walk_page < G)
+          & (walk_frame >= 0) & (walk_frame < N))
+    pg = walk_page[ok].long()
+    f = walk_frame[ok].long()
+    cand = pages[pg]
+    in_range = (cand >= 0) & (cand < U)
+    n_pages = int(torch.unique(pg).numel())
+    n_frames = int(torch.unique(f).numel())
+    n_users = int(torch.unique(cand[in_range]).numel())
+    nnz = (frame_tmask.reshape(N, W) != 0).sum(dim=1)
+    per_cand = 1 + torch.where(kind == KIND_BROADCAST, nnz,
+                               (kind == KIND_DIRECT).long())
+    ops = (2 * lanes * Wp
+           + int((in_range.sum(dim=1) * per_cand[f]).sum()))
+    nbytes = (4 * lanes * n_pages + 8 * Wp + n_users * (4 * W + 1)
+              + n_frames * (4 * W + 8) + Wp * (4 * lanes + 4))
+    return nbytes, ops
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +281,7 @@ def phase_kernels_vs_plain(device):
     import torch
     from pushcdn_tpu_torch.ops import delivery_kernel as dk
     from pushcdn_tpu_torch.ops import ragged_delivery as rd
+    from pushcdn_tpu_torch.testing import kernel_cases as kc
     rng = np.random.default_rng(1)
     errs = {"dense": 0, "ragged": 0}
     cases = [("tile-aligned", 64, 256, 1, False),
@@ -241,6 +303,31 @@ def phase_kernels_vs_plain(device):
         check(torch.equal(got, want), f"delivery_matrix_cuda != plain ({label})")
         if inv:
             check(not got.any(), "an all-invalid batch delivered")
+    for label in kc.DENSE_CASES:
+        args = kc.as_torch(kc.dense_case(label), device)
+        got = dk.delivery_matrix_cuda(*args)
+        torch.cuda.synchronize()
+        want = dk.delivery_matrix_reference(*args)
+        err = max_err(got, want)
+        errs["dense"] = max(errs["dense"], err)
+        U, N = got.shape
+        emit("kernel_vs_plain", kernel="delivery_matrix_cuda", case=label,
+             U=U, N=N, W=dk.mask_words(args[0]),
+             equal=bool(torch.equal(got, want)), max_abs_err=err,
+             deliveries=int(want.sum().item()))
+        check(torch.equal(got, want), f"delivery_matrix_cuda != plain ({label})")
+    for label in kc.RAGGED_CASES:
+        args = kc.as_torch(kc.ragged_case(label), device)
+        out, cnt = rd.ragged_delivery_cuda(*args)
+        torch.cuda.synchronize()
+        r_out, r_cnt = kc.ragged_oracle(*args)
+        err = max(max_err(out, r_out), max_err(cnt, r_cnt))
+        errs["ragged"] = max(errs["ragged"], err)
+        ok = bool(torch.equal(out, r_out) and torch.equal(cnt, r_cnt))
+        emit("kernel_vs_plain", kernel="ragged_delivery_cuda", case=label,
+             walk_rows=int(args[1].shape[0]), pages=int(args[0].shape[0]),
+             equal=ok, max_abs_err=err, deliveries=int(r_cnt.sum().item()))
+        check(ok, f"ragged_delivery_cuda != plain ({label})")
     for popularity in ("uniform", "zipf"):
         args, walk = ragged_inputs(rng, popularity, device)
         out, cnt = rd.ragged_delivery_cuda(*args)
@@ -489,10 +576,10 @@ def phase_bench_shape(device):
 # ---------------------------------------------------------------------------
 
 
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
+def nvidia_smi(query: str, *fmt: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                        "--format=" + ",".join(("csv", "noheader") + fmt)],
+                       capture_output=True, text=True, timeout=60)
     check(r.returncode == 0 and r.stdout.strip(), "nvidia-smi failed")
     return r.stdout.strip().splitlines()[0]
 
@@ -515,12 +602,16 @@ def main() -> int:
     torch.cuda.set_device(device)
 
     # 1. device
-    card = card_line()
+    card = nvidia_smi("name,power.limit")
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
+    peak_ops = int32_peak(sms, clock_mhz * 1e6)
     emit("device", name=kind, count=torch.cuda.device_count(),
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0])
+         python=sys.version.split()[0], sms=sms, max_sm_clock_mhz=clock_mhz,
+         int32_ops_per_s=peak_ops, bytes_per_s=PEAK_BYTES_PER_S)
 
     # 2. build (one nvcc per source, started together)
     t0 = time.perf_counter()
@@ -574,35 +665,30 @@ def main() -> int:
         args = max(captured[("dense", popularity)]["dense"],
                    key=lambda a: a[2].shape[0])
         U, N = args[0].shape[0], args[2].shape[0]
-        W = 1 if args[0].dim() == 1 else args[0].shape[1]
-        b_ms, b_by = dense_bound(U, N, W)
         timing[("dense", popularity)] = dict(
             kernel="delivery_matrix_cuda", shape="slice",
-            popularity=popularity, U=U, N=N, W=W,
+            popularity=popularity, U=U, N=N, W=dk.mask_words(args[0]),
             **timed(lambda: dk.delivery_matrix_cuda(*args),
                     lambda: dk.delivery_matrix_reference(*args)),
             write_floor_ms=write_floor_ms(U, N, device),
-            bound_ms=b_ms, bound_by=b_by)
+            **bound(*dense_work(*args), peak_ops))
         calls = captured[("ragged", popularity)]["ragged"]
         args = max(calls, key=lambda a: a[1].shape[0])
-        G, Wp, U, N = (args[0].shape[0], args[1].shape[0], args[3].shape[0],
-                       args[6].shape[0])
-        W = 1 if args[4].dim() == 1 else args[4].shape[1]
-        b_ms, b_by = ragged_bound(G, Wp, U, N, W)
         timing[("ragged", popularity)] = dict(
             kernel="ragged_delivery_cuda", shape="slice",
-            popularity=popularity, U=U, N=N, W=W, pages=G, walk_rows=Wp,
+            popularity=popularity, U=args[3].shape[0], N=args[6].shape[0],
+            W=dk.mask_words(args[4]), pages=args[0].shape[0],
+            walk_rows=args[1].shape[0],
             **timed(lambda: rd.ragged_delivery_cuda(*args),
                     lambda: rd.ragged_delivery_reference(*args)),
-            bound_ms=b_ms, bound_by=b_by)
+            **bound(*ragged_work(*args), peak_ops))
     U, N = bench_args[0].shape[0], bench_args[2].shape[0]
-    b_ms, b_by = dense_bound(U, N, 1)
     timing[("dense", "bench")] = dict(
         kernel="delivery_matrix_cuda", shape="bench.py", U=U, N=N, W=1,
         **timed(lambda: dk.delivery_matrix_cuda(*bench_args),
                 lambda: dk.delivery_matrix_reference(*bench_args)),
         write_floor_ms=write_floor_ms(U, N, device),
-        bound_ms=b_ms, bound_by=b_by)
+        **bound(*dense_work(*bench_args), peak_ops))
     for (impl, shape), t in timing.items():
         own = per_impl[impl][0 if impl == "dense" else 1]
         emit("time", launches_per_tick=1.0 if shape == "bench"

@@ -62,8 +62,10 @@ def mask_words(user_masks: torch.Tensor) -> int:
 def delivery_matrix_cuda(user_masks: torch.Tensor, local: torch.Tensor,
                          frame_tmask: torch.Tensor, kind: torch.Tensor,
                          dest: torch.Tensor) -> torch.Tensor:
-    """The Hopper kernel. Same contract as the plain version; any U and
-    N (the kernel masks the ragged edge)."""
+    """The Hopper kernel: per 512-frame tile a topic -> frame bitset
+    table, per user row the OR of its topics' bitsets, 16-byte stores.
+    Same contract as the plain version; any U and N (the kernel masks
+    the ragged edge)."""
     global _fn, LAUNCHES
     U = user_masks.shape[0]
     N = frame_tmask.shape[0]

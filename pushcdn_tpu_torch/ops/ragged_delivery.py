@@ -45,8 +45,9 @@ from pushcdn_tpu_torch.ops import _build
 from pushcdn_tpu_torch.ops.delivery_kernel import MAX_WORDS, mask_words
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
 
-# One page = one row of candidates, confirmed by one 128-thread block
-# (the page layout and walks are shared with the JAX package bit for bit).
+# One page = one row of candidates, confirmed by one warp at 4 lanes a
+# thread (the page layout and walks are shared with the JAX package bit
+# for bit).
 PAGE = 128
 _PAGE_SHIFT = 7  # log2(PAGE): flat walk-slot index -> walk row
 
@@ -438,9 +439,10 @@ def ragged_delivery_reference(pages, walk_page, walk_frame, local,
 
 def ragged_delivery_cuda(pages, walk_page, walk_frame, local, user_masks,
                          frame_tmask, kind, dest):
-    """The Hopper kernel: one 128-thread block per walk entry. Same
-    contract as the plain version; a walk entry whose page or frame index
-    is out of range yields an empty row."""
+    """The Hopper kernel: one warp per walk row, persistent blocks that
+    keep the next rows' loads in flight. Same contract as the plain
+    version; a walk row whose page or frame index is out of range yields
+    an empty row."""
     global _fn, LAUNCHES
     G = pages.shape[0]
     Wp = walk_page.shape[0]

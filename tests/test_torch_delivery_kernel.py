@@ -17,6 +17,7 @@ from pushcdn_tpu.ops.delivery_kernel import (
 )
 from pushcdn_tpu_torch.ops import delivery_kernel as dk
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+from pushcdn_tpu_torch.testing import kernel_cases as kc
 
 
 def _inputs(seed, U, N, W, all_invalid=False):
@@ -72,6 +73,18 @@ def test_ragged_shapes_match_jax_reference(W):
     got = dk.delivery_matrix_reference(*_port(*arrays)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jax_reference(
         *_jax(*arrays))))
+
+
+@pytest.mark.parametrize("name", list(kc.DENSE_CASES))
+def test_edge_cases_match_jax_reference(name):
+    """The cases the CUDA kernel is held to on the card: unaligned rows,
+    N = 1 and 64, partial tiles, 0..W mask words, users with no or every
+    topic, a direct-only tile with dests at -3, -1, U and U + 5."""
+    arrays = kc.dense_case(name)
+    got = dk.delivery_matrix_reference(*kc.as_torch(arrays)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_reference(
+        *_jax(*arrays))))
+    assert got.any()
 
 
 def test_out_of_range_dests_never_deliver():

@@ -15,6 +15,7 @@ from pushcdn_tpu_torch.ops import delivery_kernel as dk
 from pushcdn_tpu_torch.ops import ragged_delivery as rd
 from pushcdn_tpu_torch.parallel.frames import split_mask
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+from pushcdn_tpu_torch.testing import kernel_cases as kc
 
 
 def _cuda():
@@ -94,3 +95,28 @@ def test_ragged_delivery_cuda_matches_plain(popularity, W, T):
     r_out, r_cnt = rd.ragged_delivery_reference(*args)
     assert torch.equal(out, r_out) and torch.equal(cnt, r_cnt)
     assert int(cnt.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(kc.DENSE_CASES))
+def test_delivery_matrix_cuda_edge_cases(name):
+    """Unaligned rows, N = 1 and 64, partial chunks and tiles, frames with
+    0..W mask words, users with no or every topic, a direct-only tile."""
+    dev = _cuda()
+    args = kc.as_torch(kc.dense_case(name), dev)
+    got = dk.delivery_matrix_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dk.delivery_matrix_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", kc.RAGGED_CASES)
+def test_ragged_delivery_cuda_edge_cases(name):
+    """One row, rows off the block and stride multiples, out-of-range walk
+    indices (an empty row each), empty pages and candidates past U."""
+    dev = _cuda()
+    args = kc.as_torch(kc.ragged_case(name), dev)
+    out, cnt = rd.ragged_delivery_cuda(*args)
+    torch.cuda.synchronize()
+    r_out, r_cnt = kc.ragged_oracle(*args)
+    assert torch.equal(out, r_out) and torch.equal(cnt, r_cnt)

@@ -20,6 +20,7 @@ from pushcdn_tpu.ops import ragged_delivery as jrd
 from pushcdn_tpu_torch.ops import ragged_delivery as trd
 from pushcdn_tpu_torch.parallel.frames import mask_mirror_shape, split_mask
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+from pushcdn_tpu_torch.testing import kernel_cases as kc
 
 
 def _walks_equal(a, b):
@@ -195,6 +196,24 @@ def test_reference_matches_jax_reference_and_pallas(popularity, seed, W, T):
     np.testing.assert_array_equal(
         trd.ragged_to_dense(o, walk.walk_frame, U, N),
         jrd.ragged_to_dense(o, walk.walk_frame, U, N))
+
+
+@pytest.mark.parametrize("name", kc.RAGGED_CASES)
+def test_edge_case_oracle_matches_jax_reference(name):
+    """The oracle the CUDA kernel is held to on the card: the JAX
+    reference on rows whose page and frame indices are in range, an
+    empty row with a count of 0 on every other row."""
+    arrays = kc.ragged_case(name)
+    out, cnt = kc.ragged_oracle(*kc.as_torch(arrays))
+    G, N = arrays[0].shape[0], arrays[6].shape[0]
+    ok = ((arrays[1] >= 0) & (arrays[1] < G)
+          & (arrays[2] >= 0) & (arrays[2] < N))
+    j_out, j_cnt = jrd.ragged_delivery_reference(
+        *(jnp.asarray(a) for a in arrays))
+    np.testing.assert_array_equal(out.numpy()[ok], np.asarray(j_out)[ok])
+    np.testing.assert_array_equal(cnt.numpy()[ok], np.asarray(j_cnt)[ok])
+    assert (out.numpy()[~ok] == -1).all() and (cnt.numpy()[~ok] == 0).all()
+    assert int(cnt.sum()) > 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
