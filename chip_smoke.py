@@ -22,13 +22,29 @@ Phases, each printing one JSON line:
    kernel's launch count over this phase must be > 0;
 5. the ``bench.py`` shape (1024 users, 65536 frames, one mask word), one
    dense tick through ``routing_step_single``;
-6. times — each kernel at the shapes of phases 4 and 5 (CUDA events
+6. the mesh tick — a socket-free ``MeshGroup`` of 4 broker shards folded
+   onto the card (``make_broker_mesh(4, devices=["cuda:0"] * 4)``) at the
+   slice's width: 4096 user slots spread evenly over the shards, 256
+   topics, 2048 frames per tick (512 base-lane slots x 2048 B per shard,
+   the (16384, 32, 8) extra lane, 64-slot direct buckets), 90% broadcast
+   and 10% direct to users on any shard, 8 ticks with churn and one
+   in-group double connect each, the last shard stopped for the last two
+   ticks; uniform and zipf interest, each with the fused and the
+   per-array exchange. Every tick's per-shard pairs are checked against a
+   scalar oracle written here and against the same group run on the CPU,
+   a fused tick must count one collective, and the dense kernel's launch
+   count over this phase must be > 0. Then ``dryrun_multichip(4)`` on the
+   folded card;
+7. times — each kernel at the shapes of phases 4, 5 and 6 (CUDA events
    around 5 groups of 20 back-to-back launches queued behind a GPU spin;
    the median group's mean), its plain version's time, its bound counted
    for these inputs (``bytes_ms``, ``ops_ms``, ``bound_ms``, ``bound_by``),
    its launches per tick, for the dense kernel the time of a plain
    ``fill_`` of its output (the floor of a kernel that only writes those
-   bytes), and ``step()`` split into host packing, device step and pair
+   bytes), ``step()`` split into host packing, device step and pair
+   extraction, and the mesh tick split into staging, host snapshot and
+   upload, the exchange (pack + gather: device-to-device copies on one
+   card, not interconnect time), the per-shard device step and pair
    extraction.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
@@ -67,6 +83,12 @@ FRAMES = 1 << 16   # frame-index radix of the oracle's delivery codes
 SLICE = dict(users=4096, initial_users=4032, topics=256, topic_words=8,
              topics_per_user=3, frames=2048, wide_frames=40,
              direct_share=0.1, two_topic_share=0.1, churn=32, ticks=8)
+
+# the mesh phase: the slice's users, topics and frames per tick over four
+# broker shards (MeshGroupConfig's lanes; 512 base-lane slots per shard
+# carry the slice's 2048 frames per tick)
+MESH = dict(SLICE, shards=4, ring_slots=512, frame_bytes=2048,
+            extra_lane=(16384, 32, 8), direct_bucket_slots=64)
 
 
 def emit(phase: str, **fields) -> None:
@@ -388,14 +410,14 @@ class Scenario:
         for _ in range(SLICE["churn"]):
             self.add(plane)
 
-    def traffic(self):
-        """One tick of (kind, payload, target) items: broadcasts on one
-        topic (two for a tenth of them), directs to current users, and a
-        few frames too wide for the base lane."""
+    def traffic(self, n: int = SLICE["frames"],
+                wide_frames: int = SLICE["wide_frames"]):
+        """One tick of ``n`` (kind, payload, target) items: broadcasts on
+        one topic (two for a tenth of them), directs to current users,
+        and ``wide_frames`` frames too wide for the base lane."""
         rng = self.rng
         keys = sorted(self.users)
-        n = SLICE["frames"]
-        wide = set(rng.choice(n, SLICE["wide_frames"], replace=False).tolist())
+        wide = set(rng.choice(n, wide_frames, replace=False).tolist())
         items = []
         for i in range(n):
             size = int(rng.integers(4096, 16385)) if i in wide \
@@ -572,6 +594,267 @@ def phase_bench_shape(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the mesh tick, four shards folded onto the card
+# ---------------------------------------------------------------------------
+
+
+class MeshScenario(Scenario):
+    """The slice's users, churn and traffic spread over broker shards:
+    each user belongs to one shard, every shard stages its share of the
+    tick's frames, and one user per tick reconnects at another shard."""
+
+    def __init__(self, popularity: str, seed: int, shape: dict):
+        super().__init__(popularity, seed)
+        self.shape = shape
+        self.T = shape["topics"]
+        self.p = topic_weights(self.T, popularity)
+        self.shard = {}   # key -> owning shard
+        self.dead = set()
+
+    def live_shards(self):
+        return [s for s in range(self.shape["shards"]) if s not in self.dead]
+
+    def add_at(self, groups, shard: int):
+        key = b"user-%08d" % self.next_id
+        self.next_id += 1
+        self.users[key] = self.topics(self.shape["topics_per_user"])
+        self.shard[key] = shard
+        for g in groups:
+            check(g.claim_user(shard, key, self.users[key]) is None,
+                  "a new user kicked someone")
+
+    def stop(self, groups, shard: int):
+        self.dead.add(shard)
+        for g in groups:
+            g.mark_shard_stopped(shard)
+        for key in [k for k, s in self.shard.items() if s == shard]:
+            del self.users[key], self.shard[key]
+
+    def churn(self, groups):
+        """32 removals, 32 subscription changes, 32 adds on live shards
+        and one in-group double connect."""
+        n = self.shape["churn"]
+        keys = sorted(self.users)
+        picks = self.rng.choice(len(keys), 2 * n + 1, replace=False)
+        for i in picks[:n]:
+            key = keys[i]
+            shard = self.shard.pop(key)
+            del self.users[key]
+            for g in groups:
+                g.release_user(shard, key)
+        for i in picks[n:2 * n]:
+            key = keys[i]
+            self.users[key] = self.topics(self.shape["topics_per_user"])
+            for g in groups:
+                g.update_mask(self.shard[key], key, self.users[key])
+        live = self.live_shards()
+        for i in range(n):
+            self.add_at(groups, live[i % len(live)])
+        key = keys[picks[2 * n]]
+        old = self.shard[key]
+        new = int(self.rng.choice([s for s in live if s != old]))
+        self.shard[key] = new
+        for g in groups:
+            check(g.claim_user(new, key, self.users[key]) == (old, key),
+                  "the double connect did not kick the old session")
+
+    def mesh_traffic(self):
+        """Per shard, its share of the tick's frames as (kind, payload,
+        target) items: frame i stages at shard i % shards."""
+        B = self.shape["shards"]
+        items = self.traffic(self.shape["frames"], self.shape["wide_frames"])
+        return [items[s::B] for s in range(B)]
+
+    def code(self, shard, lane, direct, uid, frame):
+        """One delivery as an int64: (shard, lane, direct?, user id,
+        frame index in the shard's view of the lane)."""
+        return ((((np.asarray(shard, np.int64) * 2 + lane) * 2 + direct)
+                 * (1 << 20) + uid) * FRAMES + frame)
+
+    def mesh_oracle(self, per_shard, lanes):
+        """Expected delivery codes with scalar Python over this
+        scenario's own tables: frames placed by the best-fit lane rule
+        (rings and buckets start empty every tick), a broadcast delivered
+        at each subscriber's shard, a direct at its recipient's shard,
+        nothing from a dead shard. Also the expected length arrays of
+        each (lane, direct, receiving shard)."""
+        B = self.shape["shards"]
+        ids_of = {}
+        for key, topics in self.users.items():
+            for t in topics:
+                ids_of.setdefault(t, []).append(self.user_id(key))
+        ids_of = {t: np.asarray(v, np.int64) for t, v in ids_of.items()}
+        shard_of = np.full(self.next_id, -1, np.int64)
+        for key, s in self.shard.items():
+            shard_of[self.user_id(key)] = s
+        none = np.empty(0, np.int64)
+        lengths = {}
+        for li, (fbytes, slots, cap) in enumerate(lanes):
+            for dst in range(B):
+                lengths[(li, True, dst)] = np.zeros(B * cap, np.int32)
+            lengths[(li, False)] = np.zeros(B * slots, np.int32)
+        codes = []
+        for src, items in enumerate(per_shard):
+            used = [0] * len(lanes)
+            bucket = {}
+            for kind, payload, target in items:
+                if kind == 4:
+                    owner = self.shard[target]
+                    li = next(li for li, (f, _s, cap) in enumerate(lanes)
+                              if len(payload) <= f
+                              and bucket.get((li, owner), 0) < cap)
+                    k = bucket.get((li, owner), 0)
+                    bucket[(li, owner)] = k + 1
+                    frame = src * lanes[li][2] + k
+                    lengths[(li, True, owner)][frame] = len(payload)
+                    if src not in self.dead:
+                        codes.append(self.code(owner, li, 1,
+                                               self.user_id(target), frame))
+                else:
+                    li = next(li for li, (f, slots, _c) in enumerate(lanes)
+                              if len(payload) <= f and used[li] < slots)
+                    frame = src * lanes[li][1] + used[li]
+                    used[li] += 1
+                    lengths[(li, False)][frame] = len(payload)
+                    if src not in self.dead:
+                        ids = np.unique(np.concatenate(
+                            [ids_of.get(t, none) for t in target]))
+                        codes.append(self.code(shard_of[ids], li, 0, ids,
+                                               frame))
+        codes = [np.atleast_1d(c) for c in codes]
+        return np.sort(np.concatenate(codes)), lengths
+
+
+def run_mesh(popularity: str, fused: bool, seed: int, devices, shape: dict,
+             capture=None):
+    """Drive a MeshGroup on ``devices`` and its twin on the CPU in
+    lockstep for the shape's ticks: every tick's pairs against the
+    oracle, and the two groups' outputs against each other. Returns the
+    card group's per-tick rows (stage s, host s, exchange s, per-shard
+    step s, pair extraction s, pairs, collectives) and its group."""
+    from pushcdn_tpu_torch.broker.device_plane import StageResult
+    from pushcdn_tpu_torch.broker.mesh_group import (
+        MeshGroup,
+        MeshGroupConfig,
+    )
+    from pushcdn_tpu_torch.parallel.mesh import make_broker_mesh
+    B = shape["shards"]
+    cfg = MeshGroupConfig(
+        num_user_slots=shape["users"], ring_slots=shape["ring_slots"],
+        direct_bucket_slots=shape["direct_bucket_slots"],
+        frame_bytes=shape["frame_bytes"],
+        extra_lanes=(shape["extra_lane"],),
+        topic_words=shape["topic_words"], fused_collective=fused)
+    card = MeshGroup(make_broker_mesh(B, devices=devices), cfg)
+    cpu = MeshGroup(make_broker_mesh(B, devices=["cpu"] * B), cfg)
+    groups = (card, cpu)
+    lanes = cfg.lane_shapes()
+    sc = MeshScenario(popularity, seed, shape)
+    for i in range(shape["initial_users"]):
+        sc.add_at(groups, i % B)
+    label = f"mesh {popularity}/{'fused' if fused else 'per-array'}"
+    rows = []
+    for tick in range(shape["ticks"]):
+        if tick == shape["ticks"] - 2:
+            sc.stop(groups, B - 1)   # the shard-stop sweep
+        if tick:
+            sc.churn(groups)
+        per_shard = sc.mesh_traffic()
+        t0 = time.perf_counter()
+        staged = [card.stage_batch(s, items)
+                  for s, items in enumerate(per_shard)]
+        stage_s = time.perf_counter() - t0
+        check(all(r is StageResult.STAGED for rs in staged for r in rs),
+              f"{label} tick {tick}: not every frame staged")
+        check([cpu.stage_batch(s, items) for s, items in enumerate(per_shard)]
+              == staged, f"{label} tick {tick}: CPU staging differs")
+        if capture is not None and tick == shape["ticks"] - 1:
+            with capture:
+                got = card.step()
+        else:
+            got = card.step()
+        want = cpu.step()
+        check(len(got) == len(want) and all(
+            (g.shard, g.lane, g.direct) == (w.shard, w.lane, w.direct)
+            and np.array_equal(g.users, w.users)
+            and np.array_equal(g.frames, w.frames)
+            and np.array_equal(g.length, w.length)
+            and np.array_equal(g.bytes_, w.bytes_)
+            for g, w in zip(got, want)),
+            f"{label} tick {tick}: the card's pairs differ from the CPU's")
+        check(not fused or card.collectives_last_step == 1,
+              f"{label} tick {tick}: {card.collectives_last_step} "
+              "collectives in a fused tick")
+        slot_uid = np.asarray(
+            [-1 if k is None else sc.user_id(k)
+             for k in map(card.slots.key_of, range(cfg.num_user_slots))],
+            np.int64)
+        want_codes, want_len = sc.mesh_oracle(per_shard, lanes)
+        parts = []
+        for d in got:
+            uids = slot_uid[d.users]
+            check((uids >= 0).all(), f"{label} tick {tick}: delivery to an "
+                  "unmapped slot")
+            check(d.shard not in sc.dead,
+                  f"{label} tick {tick}: stopped shard {d.shard} delivered")
+            key = (d.lane, True, d.shard) if d.direct else (d.lane, False)
+            check(np.array_equal(d.length, want_len[key]),
+                  f"{label} tick {tick}: frame lengths differ")
+            parts.append(sc.code(d.shard, d.lane, int(d.direct), uids,
+                                 d.frames.astype(np.int64)))
+        got_codes = np.sort(np.concatenate(parts)) if parts \
+            else np.empty(0, np.int64)
+        check(got_codes.shape == want_codes.shape
+              and (got_codes == want_codes).all(),
+              f"{label} tick {tick}: {len(got_codes)} pairs, oracle "
+              f"{len(want_codes)}")
+        rows.append((stage_s, *card.last_step_seconds, len(got_codes),
+                     card.collectives_last_step))
+    return rows, card
+
+
+def phase_mesh(devices, shape: dict = MESH):
+    """Phase 6: the MeshGroup on ``devices`` for uniform and zipf
+    interest, each with the fused and the per-array exchange, then
+    ``dryrun_multichip``. Returns the per-run tick rows, the dense
+    kernel's captured launches of each run's last tick, its launches per
+    tick, and its launches over the phase (which must be > 0)."""
+    from pushcdn_tpu_torch.entry import dryrun_multichip
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    dk.LAUNCHES = 0
+    steps, captured, per_tick = {}, {}, {}
+    for seed, (popularity, fused) in enumerate(
+            (p, f) for p in ("uniform", "zipf") for f in (True, False)):
+        schedule = "fused" if fused else "per-array"
+        cap = Capture()
+        before = dk.LAUNCHES
+        rows, group = run_mesh(popularity, fused, 10 + seed, devices, shape,
+                               cap)
+        per_tick[(popularity, schedule)] = (dk.LAUNCHES - before) / len(rows)
+        captured[(popularity, schedule)] = cap.calls["dense"]
+        steps[(popularity, schedule)] = rows
+        emit("mesh", popularity=popularity, schedule=schedule,
+             shards=shape["shards"], devices=devices, users=shape["users"],
+             topics=shape["topics"], frames_per_tick=shape["frames"],
+             ticks=len(rows), stopped_shard=shape["shards"] - 1,
+             stopped_from_tick=shape["ticks"] - 2,
+             pairs_per_tick=[r[5] for r in rows],
+             collectives_per_tick=[r[6] for r in rows],
+             matches_oracle=True, matches_cpu=True, steps=group.steps,
+             overflows=group.overflows)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(shape["shards"], devices=devices)
+    emit("mesh_dryrun", shards=shape["shards"], devices=devices,
+         seconds=time.perf_counter() - t0, **dry)
+    emit("mesh_launches", delivery_matrix_cuda=dk.LAUNCHES,
+         per_tick=[{"popularity": k[0], "schedule": k[1], "launches": v}
+                   for k, v in per_tick.items()])
+    check(dk.LAUNCHES > 0, "the mesh phase never launched "
+          "delivery_matrix_cuda")
+    return steps, captured, per_tick, dk.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -658,7 +941,13 @@ def main() -> int:
     # 5. the bench.py shape
     bench_args = phase_bench_shape(device)
 
-    # 6. times
+    # 6. the mesh tick; the dense kernel's launch count is this phase's
+    folded = [f"cuda:{device.index}"] * MESH["shards"]
+    mesh_steps, mesh_captured, mesh_per_tick, mesh_launches = \
+        phase_mesh(folded)
+    launches["dense"] += mesh_launches
+
+    # 7. times
     timing = {}
     for popularity in ("uniform", "zipf"):
         # the base lane's launch of the dense tick, the walks of the ragged
@@ -701,8 +990,34 @@ def main() -> int:
              device_step_ms_median=float(np.median(r[:, 2]) * 1e3),
              pair_extract_ms_median=float(np.median(r[:, 3]) * 1e3),
              pairs_median=float(np.median(r[:, 4])))
+    # the dense kernel at the mesh shape: a base-lane launch of the last
+    # fused tick (one shard's lane over every shard's gathered frames)
+    for popularity in ("uniform", "zipf"):
+        args = max(mesh_captured[(popularity, "fused")],
+                   key=lambda a: a[2].shape[0])
+        U, N = args[0].shape[0], args[2].shape[0]
+        emit("time", kernel="delivery_matrix_cuda", shape="mesh",
+             popularity=popularity, shards=MESH["shards"], U=U, N=N,
+             W=dk.mask_words(args[0]),
+             launches_per_tick=mesh_per_tick[(popularity, "fused")],
+             **timed(lambda: dk.delivery_matrix_cuda(*args),
+                     lambda: dk.delivery_matrix_reference(*args)),
+             write_floor_ms=write_floor_ms(U, N, device),
+             **bound(*dense_work(*args), peak_ops))
+    for (popularity, schedule), rows in mesh_steps.items():
+        r = np.asarray(rows, dtype=float)
+        emit("mesh_step_time", popularity=popularity, schedule=schedule,
+             shards=MESH["shards"], devices=folded,
+             exchange="device-to-device copies on one card",
+             stage_ms_median=float(np.median(r[:, 0]) * 1e3),
+             host_snapshot_upload_ms_median=float(np.median(r[:, 1]) * 1e3),
+             pack_gather_ms_median=float(np.median(r[:, 2]) * 1e3),
+             shard_step_ms_median=float(np.median(r[:, 3]) * 1e3),
+             pair_extract_ms_median=float(np.median(r[:, 4]) * 1e3),
+             pairs_median=float(np.median(r[:, 5])))
 
-    # the kernel line reads the uniform slice tick
+    # the kernel line reads the uniform slice tick; the dense launches
+    # are the slice phase's and the mesh phase's
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

@@ -1,1 +1,2 @@
-"""The device plane that puts the router in a broker's hot path."""
+"""The device plane and the mesh group that put the router in a
+broker's hot path."""

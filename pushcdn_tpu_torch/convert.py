@@ -3,7 +3,9 @@
 The JAX package keeps versions and topic masks as uint32; the port keeps
 versions as int64 holding u32 values and masks as int32 bit-views of the
 u32 words. These helpers take and give the JAX package's dtypes, so a
-round trip is bit-exact and outputs compare with ``==``.
+round trip is bit-exact and outputs compare with ``==``. They take any
+leading axes: a mesh's stacked ``[B, ...]`` leaves convert as they are
+(``parallel.mesh.shard_rows`` then places row ``i`` on shard ``i``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ import torch
 
 from pushcdn_tpu_torch._device import DeviceLike, resolve_device
 from pushcdn_tpu_torch.parallel.crdt import CrdtState
-from pushcdn_tpu_torch.parallel.router import IngressBatch, RouterState
+from pushcdn_tpu_torch.parallel.router import (
+    DirectIngress,
+    IngressBatch,
+    RouterState,
+)
 
 
 def _bits_i32(a) -> np.ndarray:
@@ -79,3 +85,21 @@ def ingress_batch_to_numpy(batch: IngressBatch) -> Tuple[np.ndarray, ...]:
     return (batch.frame_bytes.cpu().numpy(), batch.kind.cpu().numpy(),
             batch.length.cpu().numpy(), _bits_u32(batch.topic_mask),
             batch.dest.cpu().numpy(), batch.valid.cpu().numpy())
+
+
+def direct_ingress_from_numpy(frame_bytes, length, dest, valid,
+                              device: DeviceLike = None) -> DirectIngress:
+    """The port's ``DirectIngress`` from the JAX package's leaves."""
+    dev = resolve_device(device)
+    return DirectIngress(
+        frame_bytes=_to(np.asarray(frame_bytes, np.uint8), dev),
+        length=_to(np.asarray(length, np.int32), dev),
+        dest=_to(np.asarray(dest, np.int32), dev),
+        valid=_to(np.asarray(valid, bool), dev))
+
+
+def liveness_from_numpy(liveness, device: DeviceLike = None
+                        ) -> torch.Tensor:
+    """The bool liveness matrix ([B, B] on a mesh: row ``i`` is shard
+    ``i``'s view of which shards are live)."""
+    return _to(np.asarray(liveness, bool), resolve_device(device))

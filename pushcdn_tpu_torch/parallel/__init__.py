@@ -2,5 +2,7 @@
 
 - ``frames``  — message frames packed into fixed-shape host rings
 - ``crdt``    — the vectorised versioned-map merge (the DirectMap twin)
-- ``router``  — the single-shard routing step, dense and ragged
+- ``mesh``    — the broker mesh: one device per broker shard
+- ``router``  — the routing step, dense and ragged, on one shard or on
+  every shard of a mesh (per-array or fused exchange)
 """

@@ -13,7 +13,9 @@ routing runs as vectorised device ops instead of per-message Python:
 A ``FrameRing`` has a fixed number of slots; ``push`` fails when it is
 full, and the host stages only as many messages per step as there are
 free slots. User identity on the device is a dense *user slot* index
-managed by ``UserSlots`` (public key ↔ slot).
+managed by ``UserSlots`` (public key ↔ slot). On a mesh of broker
+shards, direct frames stage into ``DirectBuckets`` keyed by the owner
+shard instead.
 
 The rings stay on the host (numpy): only the metadata columns are
 uploaded for a step, and frame bytes egress from the ring snapshot.
@@ -267,6 +269,93 @@ class FrameRing:
         return batch
 
 
+@dataclass
+class DirectBatch:
+    """One step of per-destination-shard direct frames (axis 0 indexes the
+    DESTINATION shard). The mesh step exchanges these with one
+    ``all_to_all``: each frame travels once, to its owner shard, instead
+    of riding the broadcast gather to every shard."""
+
+    bytes_: np.ndarray   # uint8[B, C, F]
+    length: np.ndarray   # int32[B, C]
+    dest: np.ndarray     # int32[B, C] — user slot at the destination shard
+    valid: np.ndarray    # bool[B, C]
+
+
+class DirectBuckets:
+    """Host staging for direct frames, bucketed by owner shard. The host
+    knows the owner at staging time (the group's slot table), so bucketing
+    is an append. A full bucket is per-link backpressure: only senders
+    targeting that shard stall."""
+
+    def __init__(self, num_shards: int, capacity: int = 64,
+                 frame_bytes: int = DEFAULT_FRAME_BYTES):
+        self.num_shards = num_shards
+        self.capacity = capacity
+        self.frame_bytes = frame_bytes
+        self._bytes = np.zeros((num_shards, capacity, frame_bytes), np.uint8)
+        self._length = np.zeros((num_shards, capacity), np.int32)
+        self._dest = np.full((num_shards, capacity), -1, np.int32)
+        self._valid = np.zeros((num_shards, capacity), bool)
+        self._used = np.zeros(num_shards, np.int64)
+        self._empty: Optional[DirectBatch] = None
+
+    @property
+    def total_used(self) -> int:
+        return int(self._used.sum())
+
+    @property
+    def max_used(self) -> int:
+        """Largest per-destination fill — the latency-slice eligibility
+        check (every bucket's frames must fit the prefix slice)."""
+        return int(self._used.max())
+
+    def push(self, dest_shard: int, payload: bytes, dest_slot: int) -> bool:
+        if len(payload) > self.frame_bytes:
+            bail(ErrorKind.EXCEEDED_SIZE,
+                 f"payload {len(payload)} B exceeds frame slot "
+                 f"{self.frame_bytes} B; use the host path")
+        i = int(self._used[dest_shard])
+        if i >= self.capacity:
+            return False  # this link is backpressured
+        n = len(payload)
+        self._bytes[dest_shard, i, :n] = np.frombuffer(payload, np.uint8)
+        if n < self.frame_bytes:
+            self._bytes[dest_shard, i, n:] = 0
+        self._length[dest_shard, i] = n
+        self._dest[dest_shard, i] = dest_slot
+        self._valid[dest_shard, i] = True
+        self._used[dest_shard] = i + 1
+        return True
+
+    def take_batch(self) -> DirectBatch:
+        """Snapshot every bucket and clear them; an idle set returns a
+        cached all-zero batch (read-only downstream)."""
+        if self.total_used == 0:
+            if self._empty is None:
+                self._empty = empty_direct_batch(
+                    self.num_shards, self.capacity, self.frame_bytes)
+            return self._empty
+        batch = DirectBatch(
+            bytes_=self._bytes.copy(), length=self._length.copy(),
+            dest=self._dest.copy(), valid=self._valid.copy())
+        self._valid[:] = False
+        self._length[:] = 0
+        self._dest[:] = -1
+        self._used[:] = 0
+        return batch
+
+
+def empty_direct_batch(num_shards: int, capacity: int,
+                       frame_bytes: int) -> DirectBatch:
+    return DirectBatch(
+        bytes_=np.zeros((num_shards, capacity, frame_bytes), np.uint8),
+        length=np.zeros((num_shards, capacity), np.int32),
+        dest=np.full((num_shards, capacity), -1, np.int32),
+        valid=np.zeros((num_shards, capacity), bool),
+    )
+
+
 def slice_batch(b: FrameBatch, n: int) -> FrameBatch:
     """Prefix-slice a batch to its first ``n`` slots (views, no copies):
     rings fill sequentially from slot 0, so when ``used <= n`` the prefix
@@ -274,6 +363,13 @@ def slice_batch(b: FrameBatch, n: int) -> FrameBatch:
     return FrameBatch(
         bytes_=b.bytes_[:n], kind=b.kind[:n], length=b.length[:n],
         topic_mask=b.topic_mask[:n], dest=b.dest[:n], valid=b.valid[:n])
+
+
+def slice_direct_batch(d: DirectBatch, n: int) -> DirectBatch:
+    """Prefix-slice every destination bucket to ``n`` slots (views)."""
+    return DirectBatch(
+        bytes_=d.bytes_[:, :n], length=d.length[:, :n],
+        dest=d.dest[:, :n], valid=d.valid[:, :n])
 
 
 def stage_best_fit(lanes, size: int, push) -> bool:

@@ -1,4 +1,5 @@
-"""The device router, single-shard half: one routing step per tick.
+"""The device router: one routing step per tick, on one shard or on every
+shard of a broker mesh.
 
 One step does, for a whole batch of frames at once:
 
@@ -17,14 +18,21 @@ The delivery decision comes from one of the two kernels: the dense
 (``ops.ragged_delivery``). Both dispatch on the tensors' device: the
 Hopper kernel for CUDA tensors, the plain version for CPU tensors.
 
-This is the single-shard step (the mesh of one). The multi-shard mesh
-step over ``torch.distributed`` is later work; here the "gathered" rows
-are the shard's own state with a leading axis of one.
+On a mesh (``parallel.mesh.BrokerMesh``) a step has two halves. The
+exchange moves every shard's state rows and frame columns to every
+shard (an ``all_gather``; direct buckets go only to their owner, an
+``all_to_all``), either one array at a time or packed into ONE buffer
+(the fused tick). Then each shard routes against the gathered rows on
+its own device, exactly as a single shard routes against its own rows
+with a leading axis of one. The exchange is copies between the shards'
+devices (``Tensor.to``): on one card folded into several shards it is
+device-to-device copies, not interconnect traffic.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import time
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -33,11 +41,13 @@ from pushcdn_tpu_torch.ops.delivery_kernel import delivery_matrix
 from pushcdn_tpu_torch.ops.ragged_delivery import ragged_delivery
 from pushcdn_tpu_torch.parallel.crdt import (
     ABSENT,
+    VERSION_MASK,
     CrdtState,
     bump,
     empty_state,
     merge_all_gathered_with_payload,
 )
+from pushcdn_tpu_torch.parallel.mesh import BrokerMesh
 
 # The selected delivery implementation by name (None = auto, which is
 # dense). "ragged" switches consumers (DevicePlane) onto the page walk.
@@ -52,6 +62,46 @@ def set_delivery_impl(impl: str) -> None:
     if impl not in ("auto", "dense", "ragged"):
         raise ValueError(f"unknown delivery impl {impl!r}")
     DELIVERY_IMPL = None if impl == "auto" else impl
+
+
+# ---------------------------------------------------------------------------
+# collective accounting (the one-collective-per-tick invariant)
+# ---------------------------------------------------------------------------
+#
+# Every exchange between shards goes through the two helpers below, which
+# count it: ``trace_collectives()`` deltas around a step count that
+# step's collectives. The JAX package also has ``count_collectives``,
+# which counts collective ops in a lowered StableHLO program; an eager
+# torch step lowers to no program text, so it has no counterpart here and
+# the counted helpers are the one count.
+
+_COLLECTIVES = [0]
+
+
+def trace_collectives() -> int:
+    """Collectives issued so far in this process (diff around a step)."""
+    return _COLLECTIVES[0]
+
+
+def _all_gather(xs: Sequence[torch.Tensor],
+                mesh: BrokerMesh) -> List[torch.Tensor]:
+    """``xs[j]`` is shard ``j``'s tensor on its device. Every shard gets
+    ``stack(xs)`` ([B, ...], rows in mesh order) on its own device;
+    shards that share a device share one stacked result."""
+    _COLLECTIVES[0] += 1
+    stacked = {dev: torch.stack([x.to(dev) for x in xs])
+               for dev in mesh.distinct_devices()}
+    return [stacked[dev] for dev in mesh.devices]
+
+
+def _all_to_all(xs: Sequence[torch.Tensor],
+                mesh: BrokerMesh) -> List[torch.Tensor]:
+    """``xs[j]`` is shard ``j``'s [B, ...] tensor whose axis 0 is the
+    destination shard. Shard ``i`` gets ``stack([x_j[i] for j])``: what
+    every source shard addressed to it, axis 0 now the source shard."""
+    _COLLECTIVES[0] += 1
+    return [torch.stack([x[i].to(dev) for x in xs])
+            for i, dev in enumerate(mesh.devices)]
 
 
 class RouterState(NamedTuple):
@@ -73,8 +123,10 @@ class IngressBatch(NamedTuple):
 
 
 class DirectIngress(NamedTuple):
-    """Per-destination-shard direct frames: axis 0 = shard. On a single
-    shard axis 0 has length one and holds this shard's own buckets."""
+    """Per-destination-shard direct frames: axis 0 = destination shard.
+    A mesh step exchanges them with one ``all_to_all``, so each frame
+    travels once, to its owner. On a single shard axis 0 has length one
+    and holds this shard's own buckets."""
 
     frame_bytes: torch.Tensor  # uint8[B, C, F]
     length: torch.Tensor       # int32[B, C]
@@ -198,14 +250,33 @@ def _direct_deliver(r_bytes, r_length, r_dest, r_valid, now_local,
         deliver=deliver)
 
 
+def _route_exchanged(state: RouterState, my_index: int, liveness,
+                     crdt_rows, lane_rows, direct_rows) -> MultiRouteResult:
+    """One shard's routing after the exchange, against the gathered rows:
+    ``crdt_rows`` = (owners, versions, identities, masks), each [B, U...];
+    one (bytes or None, kind, length, tmask, dest, valid) per broadcast
+    lane, each [B, S...]; one (bytes or None, length, dest, valid) per
+    direct lane as RECEIVED, axis 0 the source shard. The CRDT merge runs
+    ONCE and every lane is routed against the merged state."""
+    merged, masks, now_local, evictions = _merge_gathered(
+        state, *crdt_rows, my_index, liveness)
+    lanes = tuple(_lane_deliver(masks, now_local, *rows, liveness)
+                  for rows in lane_rows)
+    direct_lanes = tuple(_direct_deliver(*rows, now_local, liveness)
+                         for rows in direct_rows)
+    return MultiRouteResult(
+        lanes=lanes, direct_lanes=direct_lanes,
+        state=RouterState(crdt=merged, topic_masks=masks),
+        evictions=evictions)
+
+
 def routing_step_lanes(state: RouterState, batches: tuple, my_index: int,
                        directs: tuple = (),
                        liveness: Optional[torch.Tensor] = None,
                        gather_bytes: bool = True) -> MultiRouteResult:
     """One single-shard routing step over any number of size-bucketed
     lanes. ``batches`` holds one :class:`IngressBatch` per broadcast lane,
-    ``directs`` one :class:`DirectIngress` per direct lane. The CRDT merge
-    runs ONCE and every lane is routed against the merged state.
+    ``directs`` one :class:`DirectIngress` per direct lane.
 
     ``gather_bytes=False`` keeps frame bytes out of the step (broadcast
     lanes come back with ``gathered_bytes=None``): the device plane
@@ -215,36 +286,21 @@ def routing_step_lanes(state: RouterState, batches: tuple, my_index: int,
     def gather(x):
         return x[None]
 
-    merged, masks, now_local, evictions = _merge_gathered(
-        state, gather(state.crdt.owners), gather(state.crdt.versions),
-        gather(state.crdt.identities), gather(state.topic_masks),
-        my_index, liveness)
-
-    lanes = tuple(
-        _lane_deliver(masks, now_local,
-                      gather(batch.frame_bytes) if gather_bytes else None,
-                      gather(batch.kind), gather(batch.length),
-                      gather(batch.topic_mask), gather(batch.dest),
-                      gather(batch.valid), liveness)
-        for batch in batches)
+    crdt_rows = (gather(state.crdt.owners), gather(state.crdt.versions),
+                 gather(state.crdt.identities), gather(state.topic_masks))
+    lane_rows = [(gather(b.frame_bytes) if gather_bytes else None,
+                  gather(b.kind), gather(b.length), gather(b.topic_mask),
+                  gather(b.dest), gather(b.valid)) for b in batches]
     # a single shard exchanges nothing, so its direct lanes keep their
     # byte views whatever ``gather_bytes`` says (as the JAX step does)
-    direct_lanes = tuple(
-        _direct_deliver(direct.frame_bytes, direct.length, direct.dest,
-                        direct.valid, now_local, liveness)
-        for direct in directs)
-    return MultiRouteResult(
-        lanes=lanes, direct_lanes=direct_lanes,
-        state=RouterState(crdt=merged, topic_masks=masks),
-        evictions=evictions)
+    direct_rows = [(d.frame_bytes, d.length, d.dest, d.valid)
+                   for d in directs]
+    return _route_exchanged(state, my_index, liveness, crdt_rows,
+                            lane_rows, direct_rows)
 
 
-def routing_step(state: RouterState, batch: IngressBatch, my_index: int,
-                 direct: Optional[DirectIngress] = None) -> RouteResult:
-    """One routing step for one shard — the single-lane special case of
-    :func:`routing_step_lanes`."""
-    r = routing_step_lanes(state, (batch,), my_index,
-                           directs=() if direct is None else (direct,))
+def _route_result(r: MultiRouteResult) -> RouteResult:
+    """The single-lane view of a lane step's result."""
     lane = r.lanes[0]
     d = r.direct_lanes[0] if r.direct_lanes else None
     return RouteResult(
@@ -257,6 +313,15 @@ def routing_step(state: RouterState, batch: IngressBatch, my_index: int,
         direct_length=None if d is None else d.gathered_length,
         direct_deliver=None if d is None else d.deliver,
     )
+
+
+def routing_step(state: RouterState, batch: IngressBatch, my_index: int,
+                 direct: Optional[DirectIngress] = None) -> RouteResult:
+    """One routing step for one shard — the single-lane special case of
+    :func:`routing_step_lanes`."""
+    return _route_result(routing_step_lanes(
+        state, (batch,), my_index,
+        directs=() if direct is None else (direct,)))
 
 
 def routing_step_ragged(state: RouterState, batch: IngressBatch,
@@ -307,3 +372,237 @@ def routing_step_ragged_single(state: RouterState, batch: IngressBatch,
                                ) -> RaggedRouteResult:
     """Single-chip ragged step."""
     return routing_step_ragged(state, batch, pages, walk_page, walk_frame, 0)
+
+
+# ---------------------------------------------------------------------------
+# the mesh half: one exchange, then every shard routes on its own device
+# ---------------------------------------------------------------------------
+#
+# Inputs and outputs are per-shard sequences, element i on shard i's
+# device (``parallel.mesh.shard_rows`` builds them from stacked leaves).
+# The per-array exchange issues one collective per gathered array. The
+# fused tick packs every gathered leaf of a shard into one int32 buffer
+# and moves the whole tick with ONE all_gather; the direct all_to_all
+# folds into it as a gather plus a local slice (each shard keeps column
+# ``my_index`` of the gathered destination axis), at a B-fold redundancy
+# on direct payload bytes that a plane keeping bytes on the host
+# (gather_bytes=False) never pays.
+
+
+class _WordPacker:
+    """Leaf packer for the fused tick: :meth:`add` turns each tensor into
+    int32 words, :meth:`pack` concatenates them, :meth:`unpack` slices a
+    gathered [B, L] buffer back into [B, ...] leaves in :meth:`add` order.
+    Words stay int32 (torch's uint32 has no ``>`` or ``+`` on the CPU)."""
+
+    def __init__(self):
+        self._parts: List[torch.Tensor] = []
+        self._specs: list = []  # (kind, shape, pad)
+
+    def add(self, x: torch.Tensor) -> None:
+        pad = 0
+        if x.dtype == torch.bool:
+            kind, words = "bool", x.reshape(-1).to(torch.int32)
+        elif x.dtype == torch.uint8:
+            flat = x.reshape(-1)
+            pad = (-flat.numel()) % 4
+            # a fresh buffer: view(int32) needs a whole number of words
+            # starting on a 4-byte boundary
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+            kind, words = "u8", flat.view(torch.int32)
+        elif x.dtype == torch.int64:
+            # CRDT versions: u32 values carried in int64; the low 32 bits
+            # travel as the int32 of the same bits
+            low = x.reshape(-1) & VERSION_MASK
+            kind = "u32"
+            words = torch.where(low >= 2**31, low - 2**32, low).to(
+                torch.int32)
+        elif x.dtype == torch.int32:
+            kind, words = "i32", x.reshape(-1)
+        else:
+            raise TypeError(f"unpackable dtype {x.dtype}")
+        self._specs.append((kind, tuple(x.shape), pad))
+        self._parts.append(words)
+
+    def pack(self) -> torch.Tensor:
+        return torch.cat(self._parts)
+
+    def unpack(self, gathered: torch.Tensor) -> List[torch.Tensor]:
+        B = gathered.shape[0]
+        outs = []
+        off = 0
+        for (kind, shape, pad), part in zip(self._specs, self._parts):
+            n = part.numel()
+            words = gathered[:, off:off + n]
+            off += n
+            if kind == "bool":
+                out = words != 0
+            elif kind == "u8":
+                out = words.contiguous().view(torch.uint8)
+                if pad:
+                    out = out[:, :-pad]
+            elif kind == "u32":
+                out = words.to(torch.int64) & VERSION_MASK
+            else:
+                out = words
+            outs.append(out.reshape((B,) + shape))
+        return outs
+
+
+def _state_leaves(state: RouterState) -> tuple:
+    return (*state.crdt, state.topic_masks)
+
+
+def _exchange_per_array(mesh: BrokerMesh, states, batches, directs,
+                        gather_bytes: bool) -> list:
+    """One collective per array: 4 for the state, 5 per broadcast lane
+    and 3 per direct lane (one more each with ``gather_bytes``). Returns
+    each shard's (crdt_rows, lane_rows, direct_rows)."""
+    B = mesh.size
+    none = [None] * B
+    crdt = [_all_gather([_state_leaves(s)[k] for s in states], mesh)
+            for k in range(4)]
+    lanes = []
+    for li in range(len(batches[0])):
+        lane = [b[li] for b in batches]
+        first = 0 if gather_bytes else 1   # field 0 is frame_bytes
+        cols = [none] * first + [_all_gather([b[k] for b in lane], mesh)
+                                 for k in range(first, 6)]
+        lanes.append(cols)
+    dlanes = []
+    for li in range(len(directs[0])):
+        lane = [d[li] for d in directs]
+        first = 0 if gather_bytes else 1
+        cols = [none] * first + [_all_to_all([d[k] for d in lane], mesh)
+                                 for k in range(first, 4)]
+        dlanes.append(cols)
+    return [(tuple(c[i] for c in crdt),
+             [tuple(c[i] for c in cols) for cols in lanes],
+             [tuple(c[i] for c in cols) for cols in dlanes])
+            for i in range(B)]
+
+
+def _exchange_fused(mesh: BrokerMesh, states, batches, directs,
+                    gather_bytes: bool) -> list:
+    """The one-collective tick: pack → all_gather → unpack, yielding the
+    same rows as :func:`_exchange_per_array` (bit-identical routing)."""
+    first = 0 if gather_bytes else 1
+    packers = []
+    for state, lanes, dlanes in zip(states, batches, directs):
+        pk = _WordPacker()
+        for x in _state_leaves(state):
+            pk.add(x)
+        for leaves in (*lanes, *dlanes):
+            for x in leaves[first:]:
+                pk.add(x)
+        packers.append(pk)
+    # the tick's ONE collective
+    gathered = _all_gather([pk.pack() for pk in packers], mesh)
+    out = []
+    for i, (pk, g) in enumerate(zip(packers, gathered)):
+        fields = iter(pk.unpack(g))
+
+        def take(n):
+            return (None,) * first + tuple(next(fields)
+                                           for _ in range(n - first))
+
+        crdt_rows = tuple(next(fields) for _ in range(4))
+        lane_rows = [take(6) for _ in batches[i]]
+        # the all_to_all re-expressed: column i of the gathered
+        # destination axis is what each source staged for THIS shard
+        direct_rows = [tuple(None if x is None else x[:, i]
+                             for x in take(4)) for _ in directs[i]]
+        out.append((crdt_rows, lane_rows, direct_rows))
+    return out
+
+
+def _synchronize(mesh: BrokerMesh) -> None:
+    for dev in mesh.distinct_devices():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+class MeshLaneStep:
+    """The multi-shard lane step (JAX: ``routing_step_lanes`` under
+    ``shard_map`` over the broker axis). Called with per-shard sequences
+    of :class:`RouterState`, of lane tuples of :class:`IngressBatch`, of
+    lane tuples of :class:`DirectIngress` and, optionally, of bool[B]
+    liveness rows (every shard carries the full membership mask; None
+    means all live). Returns one :class:`MultiRouteResult` per shard.
+
+    ``gather_bytes=False`` keeps frame bytes out of the exchange (lanes
+    come back with ``gathered_bytes=None``): every shard's staged frames
+    live in one host's memory, so only the delivery decision needs the
+    mesh. ``fused=True`` moves the whole exchange with one collective.
+
+    ``last_seconds`` is the last call's (exchange, per-shard routing)
+    split on the host clock; the devices are synchronised after each
+    half so that neither reads as the other."""
+
+    def __init__(self, mesh: BrokerMesh, gather_bytes: bool = True,
+                 fused: bool = False):
+        self.mesh = mesh
+        self.gather_bytes = gather_bytes
+        self.fused = fused
+        self.last_seconds = (0.0, 0.0)
+
+    def __call__(self, states: Sequence[RouterState], batches: Sequence,
+                 directs: Optional[Sequence] = None,
+                 liveness: Optional[Sequence[torch.Tensor]] = None
+                 ) -> List[MultiRouteResult]:
+        B = self.mesh.size
+        if directs is None:
+            directs = [()] * B
+        for name, seq in (("states", states), ("batches", batches),
+                          ("directs", directs)):
+            if len(seq) != B:
+                raise ValueError(f"{name} has {len(seq)} shards, the mesh "
+                                 f"has {B}")
+        if liveness is not None and len(liveness) != B:
+            raise ValueError(f"liveness has {len(liveness)} rows, the mesh "
+                             f"has {B} shards")
+        exchange = _exchange_fused if self.fused else _exchange_per_array
+        t0 = time.perf_counter()
+        rows = exchange(self.mesh, states, batches, directs,
+                        self.gather_bytes)
+        _synchronize(self.mesh)
+        t1 = time.perf_counter()
+        out = [_route_exchanged(states[i], i,
+                                None if liveness is None else liveness[i],
+                                *rows[i])
+               for i in range(B)]
+        _synchronize(self.mesh)
+        self.last_seconds = (t1 - t0, time.perf_counter() - t1)
+        return out
+
+
+def make_mesh_lane_step(mesh: BrokerMesh, gather_bytes: bool = True,
+                        fused: bool = False) -> MeshLaneStep:
+    """The multi-shard lane step over ``mesh`` (see :class:`MeshLaneStep`)."""
+    return MeshLaneStep(mesh, gather_bytes=gather_bytes, fused=fused)
+
+
+def routing_step_mesh(mesh: BrokerMesh, states: Sequence[RouterState],
+                      batches: Sequence[IngressBatch],
+                      directs: Optional[Sequence[DirectIngress]] = None
+                      ) -> List[RouteResult]:
+    """One single-lane routing step on every shard of ``mesh``, with the
+    per-array exchange; with ``directs`` the one-hop ``all_to_all``
+    direct path runs in the same step. One :class:`RouteResult` per
+    shard."""
+    step = MeshLaneStep(mesh)
+    return [_route_result(r) for r in step(
+        states, [(b,) for b in batches],
+        None if directs is None else [(d,) for d in directs])]
+
+
+def make_mesh_routing_step(mesh: BrokerMesh, with_direct: bool = False):
+    """The multi-shard single-lane step: ``step(states, batches)``, or
+    ``step(states, batches, directs)`` with ``with_direct``."""
+    if with_direct:
+        def step(states, batches, directs):
+            return routing_step_mesh(mesh, states, batches, directs)
+    else:
+        def step(states, batches):
+            return routing_step_mesh(mesh, states, batches)
+    return step

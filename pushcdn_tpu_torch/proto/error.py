@@ -11,6 +11,7 @@ from typing import NoReturn, Optional
 class ErrorKind(enum.Enum):
     """What failed."""
 
+    PARSE = "parse"                  # a configuration value is invalid
     EXCEEDED_SIZE = "exceeded_size"  # a table or frame slot is too small
 
 

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every case needs an NVIDIA GPU and skips without one.
+card, and the mesh step with its shards folded onto the card against the
+same step on the CPU. Every case needs an NVIDIA GPU and skips without
+one.
 
 This file imports nothing of JAX, so it also runs on a machine that has
 only PyTorch (there without the repo's conftest, which imports JAX):
@@ -11,9 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from pushcdn_tpu_torch import convert
+from pushcdn_tpu_torch.entry import dryrun_multichip
 from pushcdn_tpu_torch.ops import delivery_kernel as dk
 from pushcdn_tpu_torch.ops import ragged_delivery as rd
-from pushcdn_tpu_torch.parallel.frames import split_mask
+from pushcdn_tpu_torch.parallel.frames import (
+    DirectBuckets,
+    FrameRing,
+    split_mask,
+)
+from pushcdn_tpu_torch.parallel.mesh import (
+    make_broker_mesh,
+    shard_rows,
+    stack_rows,
+)
+from pushcdn_tpu_torch.parallel.router import make_mesh_lane_step
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
 from pushcdn_tpu_torch.testing import kernel_cases as kc
 
@@ -120,3 +134,96 @@ def test_ragged_delivery_cuda_edge_cases(name):
     torch.cuda.synchronize()
     r_out, r_cnt = kc.ragged_oracle(*args)
     assert torch.equal(out, r_out) and torch.equal(cnt, r_cnt)
+
+
+def _mesh_inputs(n, W, seed):
+    """Stacked numpy leaves for an ``n``-shard lane step: conflicting
+    claims, an owner past the mesh, two broadcast lanes and direct
+    buckets of different fill per source and destination."""
+    rng = np.random.default_rng(seed)
+    U = 300
+    owners = rng.integers(-1, n + 2, (n, U)).astype(np.int32)
+    versions = rng.integers(0, 4, (n, U)).astype(np.uint32)
+    versions[:, 0] = 0xFFFFFFFF
+    ids = rng.integers(-1, n, (n, U)).astype(np.int32)
+    mshape = (n, U) if W == 1 else (n, U, W)
+    masks = _u32(rng, mshape) & _u32(rng, mshape)
+    lanes = []
+    for slots, fbytes in ((96, 64), (8, 512)):
+        parts = []
+        for _ in range(n):
+            ring = FrameRing(slots=slots, frame_bytes=fbytes, topic_words=W)
+            for _ in range(int(rng.integers(slots // 2, slots + 1))):
+                payload = rng.bytes(int(rng.integers(1, fbytes + 1)))
+                if rng.random() < 0.8:
+                    mask = int.from_bytes(rng.bytes(4 * W), "little") \
+                        & int.from_bytes(rng.bytes(4 * W), "little")
+                    ring.push_broadcast(payload, mask or 1)
+                else:
+                    ring.push_direct(payload, int(rng.integers(-2, U + 3)))
+            parts.append(ring.take_batch())
+        lanes.append(tuple(np.stack([getattr(p, f) for p in parts]) for f in
+                           ("bytes_", "kind", "length", "topic_mask", "dest",
+                            "valid")))
+    buckets = []
+    for _ in range(n):
+        b = DirectBuckets(n, capacity=6, frame_bytes=64)
+        for _ in range(int(rng.integers(0, 6 * n))):
+            b.push(int(rng.integers(0, n)), rng.bytes(int(rng.integers(1, 64))),
+                   int(rng.integers(-1, U)))
+        buckets.append(b.take_batch())
+    direct = tuple(np.stack([getattr(b, f) for b in buckets])
+                   for f in ("bytes_", "length", "dest", "valid"))
+    live = np.ones((n, n), bool)
+    live[:, n - 1] = False
+    return (owners, versions, ids, masks), lanes, direct, live
+
+
+def _mesh_step(devices, fused, gather_bytes, inputs):
+    state_np, lanes_np, direct_np, live_np = inputs
+    mesh = make_broker_mesh(len(devices), devices=devices)
+    tree = (convert.router_state_from_numpy(*state_np, device="cpu"),
+            tuple(convert.ingress_batch_from_numpy(*b, device="cpu")
+                  for b in lanes_np),
+            (convert.direct_ingress_from_numpy(*direct_np, device="cpu"),),
+            convert.liveness_from_numpy(live_np, device="cpu"))
+    states, batches, directs, lives = zip(*shard_rows(mesh, tree))
+    step = make_mesh_lane_step(mesh, gather_bytes=gather_bytes, fused=fused)
+    return stack_rows(step(states, batches, directs, lives))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather_bytes", [True, False])
+@pytest.mark.parametrize("W", [1, 8])
+@pytest.mark.parametrize("fused", [True, False])
+def test_mesh_lane_step_cuda_matches_cpu(fused, W, gather_bytes):
+    """Four shards folded onto one card against four CPU shards: the
+    dense kernel on every shard's lanes, the plain version on the CPU."""
+    _cuda()
+    n = 4
+    inputs = _mesh_inputs(n, W, seed=W * 2 + fused)
+    launches = dk.LAUNCHES
+    got = _mesh_step(["cuda:0"] * n, fused, gather_bytes, inputs)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == launches + 2 * n   # one per shard per lane
+    want = _mesh_step(["cpu"] * n, fused, gather_bytes, inputs)
+    flat_got = [got.evictions, *got.state.crdt, got.state.topic_masks]
+    flat_want = [want.evictions, *want.state.crdt, want.state.topic_masks]
+    for g, w in zip(got.lanes + got.direct_lanes,
+                    want.lanes + want.direct_lanes):
+        flat_got += [g.deliver, g.gathered_length]
+        flat_want += [w.deliver, w.gathered_length]
+        assert (g.gathered_bytes is None) == (w.gathered_bytes is None)
+        if g.gathered_bytes is not None:
+            flat_got.append(g.gathered_bytes)
+            flat_want.append(w.gathered_bytes)
+    for g, w in zip(flat_got, flat_want):
+        assert torch.equal(g, w)
+    assert bool(got.lanes[0].deliver.any())
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_folded_onto_one_card():
+    _cuda()
+    counts = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    assert counts == dict(base=20, wide=16, direct=4, collectives=1)
