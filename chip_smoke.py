@@ -32,9 +32,9 @@ Phases, each printing one JSON line:
    ticks; uniform and zipf interest, each with the fused and the
    per-array exchange. Every tick's per-shard pairs are checked against a
    scalar oracle written here and against the same group run on the CPU,
-   a fused tick must count one collective, and the dense kernel's launch
-   count over this phase must be > 0. Then ``dryrun_multichip(4)`` on the
-   folded card;
+   a fused tick must count one collective, and each of the four runs
+   must launch the dense kernel. Then ``dryrun_multichip(4)`` on the
+   folded card, its launches on a line of their own;
 7. times — each kernel at the shapes of phases 4, 5 and 6 (CUDA events
    around 5 groups of 20 back-to-back launches queued behind a GPU spin;
    the median group's mean), its plain version's time, its bound counted
@@ -43,9 +43,11 @@ Phases, each printing one JSON line:
    ``fill_`` of its output (the floor of a kernel that only writes those
    bytes), ``step()`` split into host packing, device step and pair
    extraction, and the mesh tick split into staging, host snapshot and
-   upload, the exchange (pack + gather: device-to-device copies on one
-   card, not interconnect time), the per-shard device step and pair
-   extraction.
+   upload, the mesh step through readback and pair extraction on the
+   host clock, plus the last tick's exchange (pack + gather:
+   device-to-device copies on one card, not interconnect time) and
+   per-shard device step replayed on their recorded inputs under CUDA
+   events.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -725,13 +727,27 @@ class MeshScenario(Scenario):
         return np.sort(np.concatenate(codes)), lengths
 
 
+class StepRecorder:
+    """Wraps a MeshGroup's mesh step and keeps the arguments of its last
+    call (the main path's own exchange and routing inputs, for timing)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.step(*args)
+
+
 def run_mesh(popularity: str, fused: bool, seed: int, devices, shape: dict,
              capture=None):
     """Drive a MeshGroup on ``devices`` and its twin on the CPU in
     lockstep for the shape's ticks: every tick's pairs against the
     oracle, and the two groups' outputs against each other. Returns the
-    card group's per-tick rows (stage s, host s, exchange s, per-shard
-    step s, pair extraction s, pairs, collectives) and its group."""
+    card group's per-tick rows (stage s, host snapshot and upload s, mesh
+    step through readback s, pair extraction s, pairs, collectives), its
+    group, and the recorder of its mesh step's arguments."""
     from pushcdn_tpu_torch.broker.device_plane import StageResult
     from pushcdn_tpu_torch.broker.mesh_group import (
         MeshGroup,
@@ -746,6 +762,7 @@ def run_mesh(popularity: str, fused: bool, seed: int, devices, shape: dict,
         extra_lanes=(shape["extra_lane"],),
         topic_words=shape["topic_words"], fused_collective=fused)
     card = MeshGroup(make_broker_mesh(B, devices=devices), cfg)
+    card.step_fn = recorder = StepRecorder(card.step_fn)
     cpu = MeshGroup(make_broker_mesh(B, devices=["cpu"] * B), cfg)
     groups = (card, cpu)
     lanes = cfg.lane_shapes()
@@ -810,48 +827,54 @@ def run_mesh(popularity: str, fused: bool, seed: int, devices, shape: dict,
               f"{len(want_codes)}")
         rows.append((stage_s, *card.last_step_seconds, len(got_codes),
                      card.collectives_last_step))
-    return rows, card
+    return rows, card, recorder
 
 
 def phase_mesh(devices, shape: dict = MESH):
     """Phase 6: the MeshGroup on ``devices`` for uniform and zipf
     interest, each with the fused and the per-array exchange, then
-    ``dryrun_multichip``. Returns the per-run tick rows, the dense
-    kernel's captured launches of each run's last tick, its launches per
-    tick, and its launches over the phase (which must be > 0)."""
+    ``dryrun_multichip``. Each MeshGroup run must launch the dense
+    kernel. Returns the per-run tick rows, the dense kernel's captured
+    launches of each run's last tick, the recorders of each run's mesh
+    step, its launches per tick, and its launches over the MeshGroup runs
+    (the dryrun's are reported on their own line)."""
     from pushcdn_tpu_torch.entry import dryrun_multichip
     from pushcdn_tpu_torch.ops import delivery_kernel as dk
-    dk.LAUNCHES = 0
-    steps, captured, per_tick = {}, {}, {}
+    steps, captured, recorded, launches = {}, {}, {}, {}
     for seed, (popularity, fused) in enumerate(
             (p, f) for p in ("uniform", "zipf") for f in (True, False)):
         schedule = "fused" if fused else "per-array"
+        key = (popularity, schedule)
         cap = Capture()
-        before = dk.LAUNCHES
-        rows, group = run_mesh(popularity, fused, 10 + seed, devices, shape,
-                               cap)
-        per_tick[(popularity, schedule)] = (dk.LAUNCHES - before) / len(rows)
-        captured[(popularity, schedule)] = cap.calls["dense"]
-        steps[(popularity, schedule)] = rows
+        dk.LAUNCHES = 0
+        rows, group, recorded[key] = run_mesh(popularity, fused, 10 + seed,
+                                              devices, shape, cap)
+        launches[key] = dk.LAUNCHES
+        captured[key] = cap.calls["dense"]
+        steps[key] = rows
         emit("mesh", popularity=popularity, schedule=schedule,
              shards=shape["shards"], devices=devices, users=shape["users"],
              topics=shape["topics"], frames_per_tick=shape["frames"],
              ticks=len(rows), stopped_shard=shape["shards"] - 1,
              stopped_from_tick=shape["ticks"] - 2,
-             pairs_per_tick=[r[5] for r in rows],
-             collectives_per_tick=[r[6] for r in rows],
+             pairs_per_tick=[r[4] for r in rows],
+             collectives_per_tick=[r[5] for r in rows],
              matches_oracle=True, matches_cpu=True, steps=group.steps,
-             overflows=group.overflows)
+             overflows=group.overflows,
+             delivery_matrix_cuda=launches[key])
+        check(launches[key] > 0, f"mesh {popularity}/{schedule} never "
+              "launched delivery_matrix_cuda")
+    per_tick = {k: v / len(steps[k]) for k, v in launches.items()}
+    emit("mesh_launches", delivery_matrix_cuda=sum(launches.values()),
+         per_tick=[{"popularity": k[0], "schedule": k[1], "launches": v}
+                   for k, v in per_tick.items()])
+    dk.LAUNCHES = 0
     t0 = time.perf_counter()
     dry = dryrun_multichip(shape["shards"], devices=devices)
     emit("mesh_dryrun", shards=shape["shards"], devices=devices,
-         seconds=time.perf_counter() - t0, **dry)
-    emit("mesh_launches", delivery_matrix_cuda=dk.LAUNCHES,
-         per_tick=[{"popularity": k[0], "schedule": k[1], "launches": v}
-                   for k, v in per_tick.items()])
-    check(dk.LAUNCHES > 0, "the mesh phase never launched "
-          "delivery_matrix_cuda")
-    return steps, captured, per_tick, dk.LAUNCHES
+         seconds=time.perf_counter() - t0, delivery_matrix_cuda=dk.LAUNCHES,
+         **dry)
+    return steps, captured, recorded, per_tick, sum(launches.values())
 
 
 # ---------------------------------------------------------------------------
@@ -943,8 +966,8 @@ def main() -> int:
 
     # 6. the mesh tick; the dense kernel's launch count is this phase's
     folded = [f"cuda:{device.index}"] * MESH["shards"]
-    mesh_steps, mesh_captured, mesh_per_tick, mesh_launches = \
-        phase_mesh(folded)
+    mesh_steps, mesh_captured, mesh_recorded, mesh_per_tick, \
+        mesh_launches = phase_mesh(folded)
     launches["dense"] += mesh_launches
 
     # 7. times
@@ -1004,20 +1027,32 @@ def main() -> int:
                      lambda: dk.delivery_matrix_reference(*args)),
              write_floor_ms=write_floor_ms(U, N, device),
              **bound(*dense_work(*args), peak_ops))
+    # the mesh tick: host-clock medians over each run's ticks, and the
+    # last tick's exchange and per-shard routing replayed on their
+    # recorded inputs under CUDA events
     for (popularity, schedule), rows in mesh_steps.items():
         r = np.asarray(rows, dtype=float)
+        rec = mesh_recorded[(popularity, schedule)]
+        states, batches, directs, liveness = rec.args
+        exchanged = rec.step.exchange(states, batches, directs)
+        pack_gather = time_ms(
+            lambda: rec.step.exchange(states, batches, directs))
+        shard_step = time_ms(
+            lambda: rec.step.route(states, exchanged, liveness))
         emit("mesh_step_time", popularity=popularity, schedule=schedule,
              shards=MESH["shards"], devices=folded,
              exchange="device-to-device copies on one card",
              stage_ms_median=float(np.median(r[:, 0]) * 1e3),
              host_snapshot_upload_ms_median=float(np.median(r[:, 1]) * 1e3),
-             pack_gather_ms_median=float(np.median(r[:, 2]) * 1e3),
-             shard_step_ms_median=float(np.median(r[:, 3]) * 1e3),
-             pair_extract_ms_median=float(np.median(r[:, 4]) * 1e3),
-             pairs_median=float(np.median(r[:, 5])))
+             mesh_step_readback_ms_median=float(np.median(r[:, 2]) * 1e3),
+             pair_extract_ms_median=float(np.median(r[:, 3]) * 1e3),
+             pack_gather_ms=pack_gather[0],
+             pack_gather_wall_ms=pack_gather[1],
+             shard_step_ms=shard_step[0], shard_step_wall_ms=shard_step[1],
+             pairs_median=float(np.median(r[:, 4])))
 
     # the kernel line reads the uniform slice tick; the dense launches
-    # are the slice phase's and the mesh phase's
+    # are the slice phase's and the mesh phase's MeshGroup runs'
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

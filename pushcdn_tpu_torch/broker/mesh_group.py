@@ -52,8 +52,8 @@ from pushcdn_tpu_torch.parallel.mesh import BrokerMesh, make_broker_mesh
 from pushcdn_tpu_torch.parallel.router import (
     DirectIngress,
     IngressBatch,
+    MeshLaneStep,
     RouterState,
-    make_mesh_lane_step,
     trace_collectives,
 )
 from pushcdn_tpu_torch.proto.error import Error
@@ -83,9 +83,11 @@ class MeshGroupConfig:
     # snapshots: only the delivery decision rides the mesh. A group whose
     # shards do not share a host sets this True.
     gather_frame_bytes: bool = False
-    # One collective per tick: every exchanged leaf packed into one
-    # buffer (router._exchange_fused). False is the per-array schedule.
-    fused_collective: bool = True
+    # The exchange's schedule: True packs every exchanged leaf into one
+    # collective per tick (router._exchange_fused), False moves one array
+    # at a time, None lets the mesh step pick (per array when every shard
+    # shares one device, fused when the shards span devices).
+    fused_collective: Optional[bool] = None
 
     def lane_shapes(self):
         """All lanes as (frame_bytes, ring_slots, direct_bucket_slots),
@@ -127,7 +129,7 @@ class MeshGroup:
         self.config = config or MeshGroupConfig()
         c = self.config
         B = self.num_shards = mesh.size
-        self.step_fn = make_mesh_lane_step(
+        self.step_fn = MeshLaneStep(
             mesh, gather_bytes=c.gather_frame_bytes,
             fused=c.fused_collective)
         # lane_rings[lane][shard]: size-bucketed broadcast staging
@@ -163,10 +165,10 @@ class MeshGroup:
         self.messages_routed = 0
         # collectives issued by the last step (router.trace_collectives)
         self.collectives_last_step: Optional[int] = None
-        # seconds of the last step(), split four ways: host snapshot and
-        # upload; the exchange (pack + gather); per-shard routing and the
-        # delivery matrices' readback; pair extraction
-        self.last_step_seconds = (0.0, 0.0, 0.0, 0.0)
+        # seconds of the last step() on the host clock, split three ways:
+        # host snapshot and upload; the mesh step (exchange and per-shard
+        # routing) through the delivery matrices' readback; pair extraction
+        self.last_step_seconds = (0.0, 0.0, 0.0)
 
     # ---- mirrors ---------------------------------------------------------
 
@@ -445,8 +447,6 @@ class MeshGroup:
             [live for _, live in state_rows])
         self.collectives_last_step = trace_collectives() - before
         self.steps += 1
-        exchange_s, shards_s = self.step_fn.last_seconds
-        t2 = time.perf_counter()
 
         pairs_s = 0.0
         live = [s for s in range(B) if liveness[s]]
@@ -500,7 +500,6 @@ class MeshGroup:
                 out.append(ShardDeliveries(s, li, True, users, frames,
                                            lengths, blocks))
         self.messages_routed += sum(len(d.users) for d in out)
-        readback_s = time.perf_counter() - t2 - pairs_s
-        self.last_step_seconds = (t1 - t0, exchange_s,
-                                  shards_s + readback_s, pairs_s)
+        self.last_step_seconds = (t1 - t0,
+                                  time.perf_counter() - t1 - pairs_s, pairs_s)
         return out

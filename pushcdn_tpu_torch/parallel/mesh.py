@@ -12,7 +12,7 @@ a mesh on the CPU (``devices=["cpu"] * n``): there is no silent CPU mesh.
 
 Step inputs and outputs on a mesh are per-shard sequences, element ``i``
 on shard ``i``'s device; :func:`shard_rows` splits stacked ``[B, ...]``
-leaves into that form and :func:`stack_rows` stacks them back on the CPU.
+leaves into that form.
 """
 
 from __future__ import annotations
@@ -98,18 +98,3 @@ def shard_rows(mesh: BrokerMesh, tree) -> list:
     device."""
     return [_tree_map(lambda x, i=i, d=dev: x[i].to(d).contiguous(), tree)
             for i, dev in enumerate(mesh.devices)]
-
-
-def stack_rows(trees: Sequence):
-    """The inverse of :func:`shard_rows`: one tree whose leaves stack
-    the shards' rows on the CPU."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.stack([t.cpu() for t in trees])
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*(stack_rows(col) for col in zip(*trees)))
-    if isinstance(first, (tuple, list)):
-        return type(first)(stack_rows(col) for col in zip(*trees))
-    raise TypeError(f"not a tensor tree: {type(first).__name__}")

@@ -31,7 +31,7 @@ device-to-device copies, not interconnect traffic.
 
 from __future__ import annotations
 
-import time
+import functools
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -516,35 +516,49 @@ def _exchange_fused(mesh: BrokerMesh, states, batches, directs,
     return out
 
 
-def _synchronize(mesh: BrokerMesh) -> None:
-    for dev in mesh.distinct_devices():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
 class MeshLaneStep:
     """The multi-shard lane step (JAX: ``routing_step_lanes`` under
     ``shard_map`` over the broker axis). Called with per-shard sequences
     of :class:`RouterState`, of lane tuples of :class:`IngressBatch`, of
     lane tuples of :class:`DirectIngress` and, optionally, of bool[B]
     liveness rows (every shard carries the full membership mask; None
-    means all live). Returns one :class:`MultiRouteResult` per shard.
+    means all live). Returns one :class:`MultiRouteResult` per shard. A
+    call is :meth:`exchange` then :meth:`route`.
 
     ``gather_bytes=False`` keeps frame bytes out of the exchange (lanes
     come back with ``gathered_bytes=None``): every shard's staged frames
     live in one host's memory, so only the delivery decision needs the
-    mesh. ``fused=True`` moves the whole exchange with one collective.
+    mesh.
 
-    ``last_seconds`` is the last call's (exchange, per-shard routing)
-    split on the host clock; the devices are synchronised after each
-    half so that neither reads as the other."""
+    ``fused`` picks the exchange's schedule. None picks it from the mesh:
+    per array when every shard shares one device, where the exchange is
+    copies on that device and packing only adds work; ONE collective
+    (the fused tick) when the shards span devices, where each collective
+    is a transfer between them. True or False forces a schedule."""
 
     def __init__(self, mesh: BrokerMesh, gather_bytes: bool = True,
-                 fused: bool = False):
+                 fused: Optional[bool] = None):
         self.mesh = mesh
         self.gather_bytes = gather_bytes
-        self.fused = fused
-        self.last_seconds = (0.0, 0.0)
+        self.fused = (len(mesh.distinct_devices()) > 1 if fused is None
+                      else fused)
+
+    def exchange(self, states: Sequence[RouterState], batches: Sequence,
+                 directs: Sequence) -> list:
+        """Every shard's gathered (crdt_rows, lane_rows, direct_rows)."""
+        exchange = _exchange_fused if self.fused else _exchange_per_array
+        return exchange(self.mesh, states, batches, directs,
+                        self.gather_bytes)
+
+    def route(self, states: Sequence[RouterState], rows: list,
+              liveness: Optional[Sequence[torch.Tensor]] = None
+              ) -> List[MultiRouteResult]:
+        """Each shard's routing against its exchanged ``rows``, on its
+        own device."""
+        return [_route_exchanged(states[i], i,
+                                 None if liveness is None else liveness[i],
+                                 *rows[i])
+                for i in range(self.mesh.size)]
 
     def __call__(self, states: Sequence[RouterState], batches: Sequence,
                  directs: Optional[Sequence] = None,
@@ -561,48 +575,28 @@ class MeshLaneStep:
         if liveness is not None and len(liveness) != B:
             raise ValueError(f"liveness has {len(liveness)} rows, the mesh "
                              f"has {B} shards")
-        exchange = _exchange_fused if self.fused else _exchange_per_array
-        t0 = time.perf_counter()
-        rows = exchange(self.mesh, states, batches, directs,
-                        self.gather_bytes)
-        _synchronize(self.mesh)
-        t1 = time.perf_counter()
-        out = [_route_exchanged(states[i], i,
-                                None if liveness is None else liveness[i],
-                                *rows[i])
-               for i in range(B)]
-        _synchronize(self.mesh)
-        self.last_seconds = (t1 - t0, time.perf_counter() - t1)
-        return out
+        return self.route(states, self.exchange(states, batches, directs),
+                          liveness)
 
 
-def make_mesh_lane_step(mesh: BrokerMesh, gather_bytes: bool = True,
-                        fused: bool = False) -> MeshLaneStep:
-    """The multi-shard lane step over ``mesh`` (see :class:`MeshLaneStep`)."""
-    return MeshLaneStep(mesh, gather_bytes=gather_bytes, fused=fused)
+# the JAX package's factory name for the step
+make_mesh_lane_step = MeshLaneStep
 
 
 def routing_step_mesh(mesh: BrokerMesh, states: Sequence[RouterState],
                       batches: Sequence[IngressBatch],
                       directs: Optional[Sequence[DirectIngress]] = None
                       ) -> List[RouteResult]:
-    """One single-lane routing step on every shard of ``mesh``, with the
-    per-array exchange; with ``directs`` the one-hop ``all_to_all``
-    direct path runs in the same step. One :class:`RouteResult` per
-    shard."""
+    """One single-lane routing step on every shard of ``mesh``; with
+    ``directs`` the one-hop ``all_to_all`` direct path runs in the same
+    step. One :class:`RouteResult` per shard."""
     step = MeshLaneStep(mesh)
     return [_route_result(r) for r in step(
         states, [(b,) for b in batches],
         None if directs is None else [(d,) for d in directs])]
 
 
-def make_mesh_routing_step(mesh: BrokerMesh, with_direct: bool = False):
-    """The multi-shard single-lane step: ``step(states, batches)``, or
-    ``step(states, batches, directs)`` with ``with_direct``."""
-    if with_direct:
-        def step(states, batches, directs):
-            return routing_step_mesh(mesh, states, batches, directs)
-    else:
-        def step(states, batches):
-            return routing_step_mesh(mesh, states, batches)
-    return step
+def make_mesh_routing_step(mesh: BrokerMesh):
+    """The multi-shard single-lane step: ``step(states, batches,
+    directs=None)``."""
+    return functools.partial(routing_step_mesh, mesh)

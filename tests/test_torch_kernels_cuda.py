@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_trees import stack_rows
 from pushcdn_tpu_torch import convert
 from pushcdn_tpu_torch.entry import dryrun_multichip
 from pushcdn_tpu_torch.ops import delivery_kernel as dk
@@ -22,11 +23,7 @@ from pushcdn_tpu_torch.parallel.frames import (
     FrameRing,
     split_mask,
 )
-from pushcdn_tpu_torch.parallel.mesh import (
-    make_broker_mesh,
-    shard_rows,
-    stack_rows,
-)
+from pushcdn_tpu_torch.parallel.mesh import make_broker_mesh, shard_rows
 from pushcdn_tpu_torch.parallel.router import make_mesh_lane_step
 from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
 from pushcdn_tpu_torch.testing import kernel_cases as kc

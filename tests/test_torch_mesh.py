@@ -20,6 +20,7 @@ from pushcdn_tpu.parallel import router as jr
 from pushcdn_tpu.parallel import frames as jframes
 from pushcdn_tpu.parallel.crdt import CrdtState as JCrdtState
 from pushcdn_tpu.parallel.mesh import make_broker_mesh as jax_mesh
+from _torch_trees import stack_rows
 from pushcdn_tpu_torch import convert
 from pushcdn_tpu_torch.broker.mesh_group import MeshGroup
 from pushcdn_tpu_torch.entry import dryrun_multichip
@@ -85,7 +86,7 @@ def _assert_state(j_state, t_state):
 
 def _assert_lane_results(j, t_list):
     """The JAX step's stacked output against the port's per-shard list."""
-    t = tmesh.stack_rows(t_list)
+    t = stack_rows(t_list)
     assert len(j.lanes) == len(t.lanes)
     assert len(j.direct_lanes) == len(t.direct_lanes)
     for jl, tl in zip(j.lanes + j.direct_lanes, t.lanes + t.direct_lanes):
@@ -98,7 +99,7 @@ def _assert_lane_results(j, t_list):
 
 
 def _assert_route_results(j, t_list):
-    t = tmesh.stack_rows(t_list)
+    t = stack_rows(t_list)
     for f in ("gathered_bytes", "gathered_length", "deliver", "evictions",
               "direct_bytes", "direct_length", "direct_deliver"):
         _eq(getattr(j, f), getattr(t, f))
@@ -282,7 +283,7 @@ def _routing_step_both(n, state_np, batch_np, direct_np=None):
         jargs.append(_jtree(jr.DirectIngress, direct_np))
     mesh, states, batches, directs, _ = _port_inputs(
         n, state_np, [batch_np], [direct_np] if with_direct else ())
-    tstep = tr.make_mesh_routing_step(mesh, with_direct=with_direct)
+    tstep = tr.make_mesh_routing_step(mesh)
     targs = [states, [b[0] for b in batches]]
     if with_direct:
         targs.append([d[0] for d in directs])
@@ -473,7 +474,7 @@ def test_fused_tick_matches_per_array_and_counts_one_collective():
         mesh, states, batches, directs, lives = _port_inputs(
             n, state_np, [batch_np], [direct_np], live)
         before = tr.trace_collectives()
-        outs[fused] = tmesh.stack_rows(tr.make_mesh_lane_step(
+        outs[fused] = stack_rows(tr.make_mesh_lane_step(
             mesh, fused=fused)(states, batches, directs, lives))
         counts[fused] = tr.trace_collectives() - before
         _lane_step_both(n, state_np, [batch_np], [direct_np], live,
@@ -611,7 +612,17 @@ def test_shard_rows_and_stack_rows_round_trip():
     rows = tmesh.shard_rows(mesh, (state, None))
     assert len(rows) == 3 and rows[1][1] is None
     assert rows[2][0].crdt.owners.tolist() == [8, 9, 10, 11]
-    back = tmesh.stack_rows([r[0] for r in rows])
+    back = stack_rows([r[0] for r in rows])
     for a, b in zip(convert.router_state_to_numpy(back),
                     convert.router_state_to_numpy(state)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("devices,fused", [(("cpu",) * 4, False),
+                                           (("cpu", "meta"), True)])
+def test_mesh_lane_step_picks_its_schedule_from_the_devices(devices, fused):
+    """Per array when every shard shares one device, fused when the
+    shards span devices; an explicit ``fused`` wins."""
+    mesh = tmesh.BrokerMesh(tuple(torch.device(d) for d in devices))
+    assert tr.MeshLaneStep(mesh).fused is fused
+    assert tr.MeshLaneStep(mesh, fused=not fused).fused is (not fused)

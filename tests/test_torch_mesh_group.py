@@ -283,8 +283,7 @@ def _assert_step(group, twin, seqs=None):
                 seqs.setdefault((s, key), []).append(
                     blocks[f, :lengths[f]].tobytes())
     if group.collectives_last_step is not None and got:
-        assert (group.collectives_last_step == 1) == \
-            group.config.fused_collective
+        assert (group.collectives_last_step == 1) == group.step_fn.fused
     return got
 
 
@@ -491,3 +490,17 @@ def test_full_rings_and_buckets_are_backpressure():
     assert got.count(StageResult.STAGED) == 12 + 5
     assert got.count(StageResult.FULL) == 2
     _assert_step(group, twin)
+
+
+def test_default_schedule_on_one_device_is_per_array():
+    """The default config lets the mesh step pick: shards on one device
+    exchange one array at a time."""
+    group = MeshGroup(make_broker_mesh(2, devices=["cpu"] * 2),
+                      MeshGroupConfig(num_user_slots=8))
+    assert group.step_fn.fused is False
+    group.claim_user(1, b"k", [3])
+    assert group.stage_batch(0, [(KIND_BROADCAST, b"hi", [3])]) == \
+        [StageResult.STAGED]
+    (d,) = group.step()
+    assert (d.shard, d.lane, d.direct) == (1, 0, False)
+    assert group.collectives_last_step > 1
