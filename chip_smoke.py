@@ -47,7 +47,20 @@ Phases, each printing one JSON line:
    host clock, plus the last tick's exchange (pack + gather:
    device-to-device copies on one card, not interconnect time) and
    per-shard device step replayed on their recorded inputs under CUDA
-   events.
+   events;
+8. the broker — the port's ``Broker`` with a ``DevicePlane`` on the card
+   (4096 user slots, the 2048 x 2048 B base lane and the 64 x 16384 B
+   lane, 8 mask words, no idle bypass), 4096 users injected over the
+   Memory transport as the test harness does it, 3 topics each of 256
+   drawn uniform or zipf(1/rank); 64 of them publish bursts of 2048 frames
+   in the slice's mix, every payload ending in (publisher, seq, send
+   time), and every user's remote end drains and records what arrives.
+   Dense and ragged at uniform (4 bursts) and zipf (2 bursts), then the
+   uniform bursts through a broker with no device plane (the port's host
+   path on the same machine). Each run must deliver exactly the scalar
+   oracle's frames to every user, in publisher order within each lane,
+   route every delivery on the plane (``messages_routed``) without
+   disabling it, and launch its kernel; one ``broker`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -55,8 +68,10 @@ line. Any failed check exits non-zero before the last line.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -91,6 +106,13 @@ SLICE = dict(users=4096, initial_users=4032, topics=256, topic_words=8,
 # carry the slice's 2048 frames per tick)
 MESH = dict(SLICE, shards=4, ring_slots=512, frame_bytes=2048,
             extra_lane=(16384, 32, 8), direct_bucket_slots=64)
+
+# the broker phase: the slice's users, topics and frame mix, published by
+# 64 of the users through a broker (bursts per popularity)
+BROKER = dict(SLICE, publishers=64, bursts={"uniform": 4, "zipf": 2},
+              ring_slots=2048, frame_bytes=2048, extra_lane=(16384, 64))
+# every payload ends in (publisher, seq, send time in perf_counter ns)
+TAIL = struct.Struct("<IIq")
 
 
 def emit(phase: str, **fields) -> None:
@@ -490,7 +512,7 @@ def run_slice(impl: str, popularity: str, device, seed: int,
             sc.churn(plane)
         items = sc.traffic()
         t0 = time.perf_counter()
-        staged = plane.stage_batch(items)
+        staged = plane.stage_frames(items)
         stage_s = time.perf_counter() - t0
         check(all(r is StageResult.STAGED for r in staged),
               f"{impl}/{popularity} tick {tick}: not every frame staged")
@@ -878,6 +900,281 @@ def phase_mesh(devices, shape: dict = MESH):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the broker, users over the Memory transport
+# ---------------------------------------------------------------------------
+
+
+class BrokerScenario:
+    """Seeded subscriptions and bursts for the broker phase, with the
+    oracle's own view of who receives what. A delivery is coded
+    ``uid << 40 | (publisher * 2 + lane) << 32 | seq``, lane 1 for a frame
+    wider than the base lane; ``seq`` rises through the run."""
+
+    def __init__(self, popularity: str, seed: int, shape: dict):
+        self.rng = np.random.default_rng(seed)
+        self.shape = shape
+        self.p = topic_weights(shape["topics"], popularity)
+        self.topics = [self.draw(shape["topics_per_user"])
+                       for _ in range(shape["users"])]
+        by_topic = {}
+        for uid, topics in enumerate(self.topics):
+            for t in topics:
+                by_topic.setdefault(t, []).append(uid)
+        self.by_topic = {t: np.asarray(v, np.int64)
+                         for t, v in by_topic.items()}
+        self.filler = self.rng.integers(0, 256, 1 << 15,
+                                        dtype=np.uint8).tobytes()
+        self.seq = 0
+
+    def draw(self, k):
+        return sorted({int(t) for t in self.rng.choice(
+            self.shape["topics"], size=k, p=self.p)})
+
+    def burst(self):
+        """One burst of wire frames per publisher (send time 0), frame i
+        from publisher i % publishers: broadcasts on one topic (two for a
+        tenth of them), directs to any user, ``wide_frames`` frames for
+        the wide lane. Returns the frames and the oracle's delivery codes
+        and byte totals per user."""
+        from pushcdn_tpu_torch.proto.message import (
+            Broadcast,
+            Direct,
+            serialize,
+        )
+        s, rng = self.shape, self.rng
+        n, P, U = s["frames"], s["publishers"], s["users"]
+        wide = set(rng.choice(n, s["wide_frames"], replace=False).tolist())
+        frames = [[] for _ in range(P)]
+        codes = []
+        nbytes = np.zeros(U, np.int64)
+        for i in range(n):
+            pub, seq = i % P, self.seq
+            self.seq += 1
+            size = int(rng.integers(4096, 16001)) if i in wide \
+                else int(rng.integers(16, 513))
+            off = int(rng.integers(0, len(self.filler) - size))
+            body = self.filler[off:off + size] + TAIL.pack(pub, seq, 0)
+            if rng.random() < s["direct_share"]:
+                uid = int(rng.integers(U))
+                frame = serialize(Direct(b"user-%d" % uid, body))
+                uids = np.asarray([uid], np.int64)
+            else:
+                k = 2 if rng.random() < s["two_topic_share"] else 1
+                topics = self.draw(k)
+                frame = serialize(Broadcast(topics, body))
+                uids = np.unique(np.concatenate(
+                    [self.by_topic.get(t, np.empty(0, np.int64))
+                     for t in topics]))
+            lane = int(len(frame) > s["frame_bytes"])
+            frames[pub].append(frame)
+            codes.append((uids << 40) | (((pub * 2 + lane) << 32) | seq))
+            nbytes[uids] += len(frame)
+        return frames, np.concatenate(codes), nbytes
+
+
+async def broker_run(impl: str, popularity: str, seed: int, device,
+                     shape: dict) -> dict:
+    """One run of the broker phase: a broker with a device plane of
+    ``impl`` on ``device`` (or none, ``impl="host"``), its users injected
+    over the Memory transport, the scenario's bursts published and
+    drained; every check of the run, then its numbers."""
+    from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+    from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.broker.test_harness import TestRun
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.ops import ragged_delivery as rd
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.def_ import testing_run_def
+    from pushcdn_tpu_torch.proto.topic import TopicSpace
+    from pushcdn_tpu_torch.proto.transport.memory import Memory
+
+    label = f"broker {impl}/{popularity}"
+    U, base = shape["users"], shape["frame_bytes"]
+    sc = BrokerScenario(popularity, seed, shape)
+    bursts = [sc.burst() for _ in range(shape["bursts"][popularity])]
+    plane_cfg = None if impl == "host" else DevicePlaneConfig(
+        num_user_slots=U, ring_slots=shape["ring_slots"], frame_bytes=base,
+        extra_lanes=(shape["extra_lane"],), topic_words=shape["topic_words"],
+        bypass_max_items=0, delivery_impl=impl, ragged_max_pages=4096)
+    build = os.path.join(HERE, ".build")
+    os.makedirs(build, exist_ok=True)
+    db = os.path.join(build, f"smoke-discovery-{os.getpid()}.sqlite")
+    name = f"smoke-{impl}-{popularity}"
+    # the JAX package's forwarding bench widens the in-process pipes the
+    # same way, so 16 KB frames are not chopped into 8 KB writes
+    prev_window = Memory.set_duplex_window(256 * 1024)
+    t_run = time.perf_counter()
+    try:
+        broker = await Broker.new(BrokerConfig(
+            run_def=testing_run_def(
+                topics=TopicSpace.range(shape["topics"])),
+            keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+            discovery_endpoint=db, public_advertise_endpoint=f"{name}-pub",
+            public_bind_endpoint=f"{name}-pub",
+            private_advertise_endpoint=f"{name}-priv",
+            private_bind_endpoint=f"{name}-priv",
+            heartbeat_interval_s=3600, sync_interval_s=3600,
+            whitelist_interval_s=3600, device_plane=plane_cfg,
+            device=device))
+        warm = (dk.LAUNCHES, rd.LAUNCHES)
+        await broker.start()   # the plane warms both lane shapes up
+        warm = (dk.LAUNCHES - warm[0], rd.LAUNCHES - warm[1])
+        run = TestRun(broker=broker)
+        try:
+            await run.inject_users(sc.topics)
+            plane = broker.device_plane
+            got = [[] for _ in range(U)]
+            got_bytes = [0] * U
+            latency_ns = []
+            seen = [0, 0]   # frames received, perf_counter ns of the last
+
+            async def drain(uid, remote):
+                box = got[uid]
+                while True:
+                    raws = await remote.recv_raw_many()
+                    now = time.perf_counter_ns()
+                    for raw in raws:
+                        d = raw.data
+                        pub, seq, sent = TAIL.unpack_from(
+                            d, len(d) - TAIL.size)
+                        box.append(((pub * 2 + (len(d) > base)) << 32) | seq)
+                        got_bytes[uid] += len(d)
+                        latency_ns.append(now - sent)
+                        raw.release()
+                    seen[0] += len(raws)
+                    seen[1] = now
+
+            drains = [asyncio.create_task(drain(uid, u.remote))
+                      for uid, u in enumerate(run.connected_users)]
+            dk.LAUNCHES = 0
+            rd.LAUNCHES = 0
+            busy_s = 0.0
+            want_total = 0
+            try:
+                for frames, codes, _ in bursts:
+                    want_total += len(codes)
+                    t0 = time.perf_counter_ns()
+                    for pub, pub_frames in enumerate(frames):
+                        stamp = struct.pack("<q", time.perf_counter_ns())
+                        await run.user(pub).remote.send_raw_many(
+                            [f[:-8] + stamp for f in pub_frames])
+                    async with asyncio.timeout(300):
+                        while seen[0] < want_total:
+                            await asyncio.sleep(0.002)
+                    busy_s += (seen[1] - t0) / 1e9
+                # a duplicate or a stray frame would land in this window
+                await asyncio.sleep(0.2)
+            except TimeoutError:
+                raise SmokeFailure(f"{label}: {seen[0]} of {want_total} "
+                                   "frames arrived") from None
+            finally:
+                launches = (dk.LAUNCHES, rd.LAUNCHES)
+                for t in drains:
+                    t.cancel()
+                ends = await asyncio.gather(*drains, return_exceptions=True)
+            check(all(isinstance(e, asyncio.CancelledError) for e in ends),
+                  f"{label}: a receiver failed: "
+                  f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
+            stats = plane_stats(plane)
+        finally:
+            await run.shutdown()
+    finally:
+        Memory.set_duplex_window(prev_window)
+        if os.path.exists(db):
+            os.remove(db)
+
+    # every user's frames against the oracle, and publisher order per lane
+    want = np.sort(np.concatenate([c for _, c, _ in bursts]))
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries differ from the oracle's "
+          f"{len(want)}")
+    check(np.array_equal(np.asarray(got_bytes),
+                         sum(b for _, _, b in bursts)),
+          f"{label}: received bytes differ from the oracle's")
+    for uid, c in enumerate(got):
+        c = np.asarray(c, np.int64)
+        order = np.argsort(c >> 32, kind="stable")
+        hi, seq = (c >> 32)[order], (c & 0xFFFFFFFF)[order]
+        check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
+              f"{label}: user {uid} got a publisher's frames out of order")
+    if plane is not None:
+        check(not plane.disabled, f"{label}: the device plane disabled itself")
+        check(plane.steps > 0, f"{label}: the plane never stepped")
+        check(plane.messages_routed == len(want),
+              f"{label}: the plane routed {plane.messages_routed} of "
+              f"{len(want)} deliveries; the rest took the host path")
+        check(plane.delivery_impl == impl,
+              f"{label}: the plane switched to {plane.delivery_impl}")
+    else:
+        check(launches == (0, 0), f"{label}: the host path launched a kernel")
+    lat_ms = np.asarray(latency_ns, np.float64) / 1e6
+    return dict(
+        impl=impl, popularity=popularity,
+        path="device plane" if plane is not None
+        else "the port's host path, same machine",
+        users=U, topics=shape["topics"], publishers=shape["publishers"],
+        bursts=len(bursts), frames_per_burst=shape["frames"],
+        deliveries=len(want), matches_oracle=True,
+        fifo_per_publisher_and_lane=True,
+        delivered_msgs_per_s=len(want) / busy_s,
+        publish_to_receive_ms_p50=float(np.percentile(lat_ms, 50)),
+        publish_to_receive_ms_p99=float(np.percentile(lat_ms, 99)),
+        busy_s=busy_s, run_s=time.perf_counter() - t_run,
+        delivery_matrix_cuda=launches[0], ragged_delivery_cuda=launches[1],
+        warmup_launches={"delivery_matrix_cuda": warm[0],
+                         "ragged_delivery_cuda": warm[1]},
+        **stats)
+
+
+def plane_stats(plane) -> dict:
+    """The plane's counters and per-step medians over the pump's steps
+    (host snapshot, device step, pair extraction, egress), in ms."""
+    if plane is None:
+        return {}
+    r = np.asarray(plane.recent_steps, np.float64).reshape(-1, 6)
+    med = (lambda col: float(np.median(r[:, col]) * 1e3)) if len(r) \
+        else (lambda col: None)
+    return dict(
+        steps=plane.steps, messages_routed=plane.messages_routed,
+        ragged_steps=plane.ragged_steps,
+        ragged_fallbacks=plane.ragged_fallbacks,
+        frames_per_step_median=float(np.median(r[:, 4])) if len(r) else None,
+        snapshot_ms_median=med(0), device_step_ms_median=med(1),
+        pair_extract_ms_median=med(2), egress_ms_median=med(3))
+
+
+def phase_broker(device, shape: dict = BROKER):
+    """Phase 8: dense and ragged at uniform and zipf interest, then the
+    uniform bursts with no device plane. Returns each run's line and the
+    kernels' launches over the device runs' traffic; fails unless each
+    device run launched its kernel."""
+    rows = {}
+    for impl, popularity in (("dense", "uniform"), ("dense", "zipf"),
+                             ("ragged", "uniform"), ("ragged", "zipf"),
+                             ("host", "uniform")):
+        # one seed per popularity: every impl takes the same bursts
+        seed = 40 + (popularity == "zipf")
+        rows[(impl, popularity)] = row = asyncio.run(
+            broker_run(impl, popularity, seed, device, shape))
+        emit("broker", **row)
+    for (impl, popularity), row in rows.items():
+        if impl == "dense":
+            check(row["delivery_matrix_cuda"] > 0, f"broker dense/{popularity}"
+                  " never launched delivery_matrix_cuda")
+        if impl == "ragged":
+            check(row["ragged_delivery_cuda"] > 0 and row["ragged_steps"] > 0,
+                  f"broker ragged/{popularity} never launched "
+                  "ragged_delivery_cuda")
+    launches = {"dense": sum(r["delivery_matrix_cuda"] for r in rows.values()),
+                "ragged": sum(r["ragged_delivery_cuda"] for r in rows.values())}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1051,8 +1348,13 @@ def main() -> int:
              shard_step_ms=shard_step[0], shard_step_wall_ms=shard_step[1],
              pairs_median=float(np.median(r[:, 4])))
 
-    # the kernel line reads the uniform slice tick; the dense launches
-    # are the slice phase's and the mesh phase's MeshGroup runs'
+    # 8. the broker; its device runs' launches join the kernel line's
+    _, broker_launches = phase_broker(device)
+    launches["dense"] += broker_launches["dense"]
+    launches["ragged"] += broker_launches["ragged"]
+
+    # the kernel line reads the uniform slice tick; the launches are the
+    # slice phase's, the mesh phase's MeshGroup runs' and the broker's
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

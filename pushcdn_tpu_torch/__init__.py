@@ -11,10 +11,15 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
 - ``ops.delivery_kernel`` / ``ops.ragged_delivery`` — the two delivery
   kernels, hand-written CUDA C++ for ``sm_90a`` (``csrc/``), each beside
   its plain PyTorch version
-- ``broker.device_plane`` — a socket-free ``DevicePlane``: staging, host
-  mirrors, one ``step()`` that returns per-user ``(user, frame)`` pairs
+- ``broker.device_plane`` — the ``DevicePlane``: staging, host mirrors,
+  the step, and under a broker the asyncio pump with its egress and host
+  fallback; socket-free, one ``step()`` returns ``(user, frame)`` pairs
 - ``broker.mesh_group`` — a socket-free ``MeshGroup``: N broker shards in
   one process, one mesh step per tick, per-shard pairs
+- ``broker.broker``, ``broker.tasks``, ``broker.test_harness`` and
+  ``proto`` — the single-broker host data path over the Memory
+  transport, copied from the JAX package (``native`` stands in for its
+  C++ host routines and answers None, so they run in Python)
 
 The package imports torch and numpy only: nothing of JAX and nothing of
 ``pushcdn_tpu``. Entry points run on ``cuda`` unless the caller passes

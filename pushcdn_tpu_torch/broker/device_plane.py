@@ -1,13 +1,26 @@
 """DevicePlane — the routing decision for a broker's local users, on the
-device, with no sockets.
+device.
 
-Eligible messages (frames that fit a lane's slot) are staged into the
-size-bucketed frame rings; :meth:`DevicePlane.step` routes everything
-staged in one device step and returns, per lane, the ``(user, frame)``
-delivery pairs plus the lane's host ``length`` and ``bytes_`` arrays, so
-a caller can egress each frame verbatim to each user. Frame bytes never
-go to the device: only metadata is uploaded, and only the decision comes
-back.
+Eligible messages (wire frames that fit a lane's slot) are staged into
+the size-bucketed frame rings and routed in batched device steps. Frame
+bytes never go to the device: only metadata is uploaded, and only the
+decision — per lane, the ``(user, frame)`` delivery pairs — comes back;
+each delivered frame then goes verbatim from the host ring snapshot to
+the user's connection, so receivers are byte-identical with the host
+path.
+
+Two ways to drive it:
+
+- **attached to a broker** (``DevicePlane(config, device, broker=b)``,
+  what ``Broker.new(BrokerConfig(device_plane=...))`` builds): the user
+  receive loop stages each eligible frame (``try_stage``/``stage_batch``
+  with ``(message, raw)`` items, as in the JAX package), :meth:`start`
+  spawns an asyncio pump that steps the plane in a worker thread, and
+  the pump writes every delivered frame to the users' connections
+  (``senders.egress_delivery_rows``);
+- **socket-free**: :meth:`stage_frames` takes ``(kind, payload, target)``
+  items and :meth:`step` returns the per-lane pairs plus the lane's host
+  ``length`` and ``bytes_`` arrays.
 
 Consistency design (single-writer, snapshot-per-step):
 
@@ -23,30 +36,42 @@ Consistency design (single-writer, snapshot-per-step):
   index (``RaggedInterest``) is maintained from the same hooks; page-pool
   exhaustion demotes the plane to the dense step, and once membership
   halves a rebuild is tried and the plane returns to the page walk.
-- **Failure raises**: a step that fails raises to the caller; the
-  staged batch is not re-routed here.
+- **Pump snapshot on the loop**: the pump takes the snapshot (the
+  rings, the mirrors, the ragged walk, the quarantine swap) in one
+  event-loop step, so an observer hook racing the threaded step lands in
+  the next snapshot; only the device step runs in the worker thread, and
+  quarantined slots are freed on the loop after it returns.
+- **Failure**: under the pump, a step that raises disables the plane and
+  re-routes the failed batch and the frames staged meanwhile on the host
+  path (users only); staging then always answers INELIGIBLE and the
+  broker is a plain host broker again. The socket-free ``step()`` raises
+  to its caller.
 
-The asyncio pump, the broker wiring, the host-path fallback and egress to
-sockets belong to the broker and are not part of this module.
+Egress is Python (``senders.egress_delivery_rows``); the JAX package's
+native egress engine is not copied yet.
 """
 
 from __future__ import annotations
 
-import enum
+import asyncio
+import collections
 import logging
 import time
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional
+from typing import TYPE_CHECKING, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pushcdn_tpu_torch._device import DeviceLike, resolve_device
 from pushcdn_tpu_torch.broker.pump_common import (
+    CoalesceGate,
     RevCache,
     TopicMaskCache,
     effective_users,
 )
+from pushcdn_tpu_torch.broker.staging import StageResult
+from pushcdn_tpu_torch.broker.tasks.senders import egress_delivery_rows
 from pushcdn_tpu_torch.ops.ragged_delivery import (
     RaggedInterest,
     ragged_pairs,
@@ -70,18 +95,22 @@ from pushcdn_tpu_torch.parallel.router import (
     routing_step_ragged_single,
 )
 from pushcdn_tpu_torch.proto.error import Error
-from pushcdn_tpu_torch.proto.message import KIND_BROADCAST, KIND_DIRECT
+from pushcdn_tpu_torch.proto.limiter import Bytes
+from pushcdn_tpu_torch.proto.message import (
+    KIND_BROADCAST,
+    KIND_DIRECT,
+    Broadcast,
+    Direct,
+    deserialize,
+)
+
+if TYPE_CHECKING:
+    from pushcdn_tpu_torch.broker.broker import Broker
 
 logger = logging.getLogger("pushcdn.broker.device")
 
-
-class StageResult(enum.Enum):
-    """Outcome of staging — FULL is backpressure (retry), INELIGIBLE is a
-    host-path message (don't)."""
-
-    STAGED = "staged"
-    INELIGIBLE = "ineligible"
-    FULL = "full"
+__all__ = ["DevicePlane", "DevicePlaneConfig", "LaneDeliveries",
+           "StageResult", "StepTiming"]
 
 
 @dataclass
@@ -141,13 +170,39 @@ class LaneDeliveries(NamedTuple):
     bytes_: np.ndarray   # uint8[S, F] — the lane's host frame bytes
 
 
+class StepTiming(NamedTuple):
+    """One pump step, in seconds, with its frame and delivery counts."""
+
+    snapshot_s: float   # rings, mirrors and ragged walk on the loop
+    device_s: float     # upload, kernels and readback (worker thread)
+    pairs_s: float      # pair extraction (worker thread)
+    egress_s: float     # delivered frames queued to the connections
+    frames: int         # frames the step routed
+    deliveries: int     # frames queued to users
+
+
+class _Snapshot(NamedTuple):
+    batches: list
+    owned: np.ndarray
+    masks: np.ndarray
+    state_rev: int
+    walks: Optional[list]
+    quarantined: List[int]
+
+
 class DevicePlane:
-    """Socket-free device plane: staging, host mirrors and the step."""
+    """The device plane: staging, host mirrors, the step and, attached to
+    a broker, the pump with its egress and host fallback."""
+
+    # single-shard plane: inter-broker fan-out stays on the host links
+    covers_brokers = False
 
     def __init__(self, config: Optional[DevicePlaneConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 broker: Optional["Broker"] = None):
         self.device = resolve_device(device)
         self.config = config or DevicePlaneConfig()
+        self.broker = broker
         c = self.config
         self.slots = UserSlots(c.num_user_slots)
         self.rings = [FrameRing(slots=s, frame_bytes=f,
@@ -178,9 +233,19 @@ class DevicePlane:
         self.ragged_fallbacks = 0   # ticks that fell back to dense
         self.steps = 0
         self.messages_routed = 0
-        # seconds of the last step(), split three ways: host snapshot and
+        # seconds of the last step, split three ways: host snapshot and
         # walk packing; upload, kernels and readback; pair extraction
         self.last_step_seconds = (0.0, 0.0, 0.0)
+        # the pump's recent steps (StepTiming), newest last
+        self.recent_steps: collections.deque = collections.deque(
+            maxlen=4096)
+        self.disabled = False
+        # the heartbeat's fail-open check reads this off any plane; a
+        # single-shard plane never needs host links for overflow
+        self.overflow_seen = False
+        self._kick = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._step_inflight = False
 
     # ---- user lifecycle (observer hooks) ---------------------------------
 
@@ -250,21 +315,48 @@ class DevicePlane:
 
     def _idle_bypass(self, n_items: int) -> bool:
         """True when the latency regime should skip the device: nothing
-        staged and the arriving batch is small."""
+        staged, no step in flight, and the arriving batch is small."""
         return (n_items <= self.config.bypass_max_items
+                and not self._step_inflight
                 and all(r.free_slots == r.slots for r in self.rings))
 
-    def stage_batch(self, items) -> List[StageResult]:
-        """Stage a batch of ``(kind, payload, target)`` items, where
-        ``target`` is the topic list of a ``KIND_BROADCAST`` frame or the
-        recipient's public key of a ``KIND_DIRECT`` frame. Each eligible
-        frame goes to the smallest lane it fits with a free slot.
+    @staticmethod
+    def _frame_item(message, raw: Bytes):
+        """A decoded message and its wire frame as a ``stage_frames``
+        item; another kind than Broadcast or Direct stages as kind 0,
+        which is INELIGIBLE."""
+        if isinstance(message, Broadcast):
+            return KIND_BROADCAST, raw.data, message.topics
+        if isinstance(message, Direct):
+            return KIND_DIRECT, raw.data, message.recipient
+        return 0, raw.data, None
 
-        INELIGIBLE ⇒ host path (too big, unknown recipient, unmirrored
-        users present, a topic outside the configured space, no topics,
-        another kind, or the idle bypass); FULL ⇒ backpressure, retry."""
+    def try_stage(self, message, raw: Bytes) -> StageResult:
+        """Stage one decoded message's WIRE FRAME for device routing.
+        INELIGIBLE ⇒ host path; FULL ⇒ slot-credit backpressure, the
+        caller retries."""
+        return self.stage_frames([self._frame_item(message, raw)])[0]
+
+    def stage_batch(self, items) -> List[StageResult]:
+        """Stage a whole receive batch of ``(message, raw)`` pairs in one
+        pass; returns a ``StageResult`` per item, aligned with ``items``
+        (FULL items are the leftovers the caller retries singly)."""
+        return self.stage_frames([self._frame_item(m, r) for m, r in items])
+
+    def stage_frames(self, items) -> List[StageResult]:
+        """Stage a batch of ``(kind, payload, target)`` items, where
+        ``payload`` is the wire frame and ``target`` the topic list of a
+        ``KIND_BROADCAST`` frame or the recipient's public key of a
+        ``KIND_DIRECT`` frame. Each eligible frame goes to the smallest
+        lane it fits with a free slot; each lane's group is packed with
+        one ``FrameRing.push_batch``.
+
+        INELIGIBLE ⇒ host path (plane disabled, too big, unknown
+        recipient, unmirrored users present, a topic outside the
+        configured space, no topics, another kind, or the idle bypass);
+        FULL ⇒ backpressure, retry."""
         results = [StageResult.INELIGIBLE] * len(items)
-        if self._idle_bypass(len(items)):
+        if self.disabled or self._idle_bypass(len(items)):
             return results
         groups: dict[int, list] = {}   # lane -> [(idx, frame, kind, mask, dest)]
         free = [r.free_slots for r in self.rings]
@@ -296,13 +388,22 @@ class DevicePlane:
                     placed = True
                     break
             results[idx] = StageResult.STAGED if placed else StageResult.FULL
+        staged_any = False
         for li, group in groups.items():
             n = self.rings[li].push_batch(
                 [g[1] for g in group], [g[2] for g in group],
                 [g[3] for g in group], [g[4] for g in group])
+            staged_any = staged_any or n > 0
             for idx, *_ in group[n:]:
                 results[idx] = StageResult.FULL
+        if staged_any:
+            self._kick.set()
         return results
+
+    def covered_broker_idents(self) -> set:
+        """Broker identifiers whose delivery this plane covers — none for
+        the single-shard plane (host links handle all peers)."""
+        return set()
 
     # ---- the step -----------------------------------------------------------
 
@@ -324,14 +425,18 @@ class DevicePlane:
             return None
         return walks
 
-    def step(self) -> List[LaneDeliveries]:
-        """Route everything staged: snapshot the rings and mirrors, run
-        the dense or the ragged device step, and return the delivery
-        pairs of every lane that delivered something. Raises if the step
-        fails."""
-        t0 = time.perf_counter()
-        if all(r.free_slots == r.slots for r in self.rings):
-            return []
+    def _idle(self) -> bool:
+        return all(r.free_slots == r.slots for r in self.rings)
+
+    def _snapshot(self) -> Optional[_Snapshot]:
+        """Take everything staged with the mirrors it routes against: the
+        rings' batches (the base lane prefix-sliced to ``latency_slots``
+        when only it is busy with at most that many frames), the mirrors
+        up to the slot high-water mark, the ragged walk, and the slots
+        quarantined so far. None when nothing is staged. Under the pump
+        this runs on the event loop, where the observer hooks run."""
+        if self._idle():
+            return None
         c = self.config
         lat = c.latency_slots
         small = (self.rings[0].slots - self.rings[0].free_slots <= lat
@@ -340,31 +445,189 @@ class DevicePlane:
         if small:
             batches = [slice_batch(batches[0], lat)]
         u_eff = effective_users(self.slots.high_water, c.num_user_slots)
-        owned = self._owned[:u_eff].copy()
-        masks = self._masks[:u_eff].copy()
         walks = self._pack_walks(batches) \
             if self.delivery_impl == "ragged" else None
         quarantined, self._quarantine = self._quarantine, []
+        return _Snapshot(batches, self._owned[:u_eff].copy(),
+                         self._masks[:u_eff].copy(), self._state_rev, walks,
+                         quarantined)
+
+    def _free_quarantined(self, snap: _Snapshot) -> None:
+        for slot in snap.quarantined:  # the step is over: safe to recycle
+            self.slots.free_slot(slot)
+
+    def step(self) -> List[LaneDeliveries]:
+        """Route everything staged: snapshot the rings and mirrors, run
+        the dense or the ragged device step, and return the delivery
+        pairs of every lane that delivered something. Raises if the step
+        fails."""
+        t0 = time.perf_counter()
+        snap = self._snapshot()
+        if snap is None:
+            return []
         t1 = time.perf_counter()
         try:
-            out, pairs_s = self._run_step(batches, owned, masks,
-                                          self._state_rev, walks)
+            out, pairs_s = self._run_step(snap.batches, snap.owned,
+                                          snap.masks, snap.state_rev,
+                                          snap.walks)
         finally:
-            for slot in quarantined:  # safe to recycle now
-                self.slots.free_slot(slot)
+            self._free_quarantined(snap)
         device_s = time.perf_counter() - t1 - pairs_s
         self.last_step_seconds = (t1 - t0, device_s, pairs_s)
+        self.messages_routed += sum(len(j.users) for j in out)
         return out
+
+    # ---- the pump (attached to a broker) ------------------------------------
+
+    async def start(self) -> None:
+        """Warm both lane shapes up off the event loop (the first launch
+        of each kernel builds and loads it), then spawn the pump."""
+        await asyncio.to_thread(self._warmup)
+        self._task = asyncio.create_task(self._pump(), name="device-pump")
+
+    def _warmup(self) -> None:
+        """Run the two shapes the pump uses once: all lanes at full size
+        and the latency-sliced base lane. A failure disables the plane."""
+        empty = [r.take_batch() for r in self.rings]
+        lat = [slice_batch(empty[0], self.config.latency_slots)]
+        u0 = effective_users(0, self.config.num_user_slots)
+        steps = self.steps
+        try:
+            walks = self._pack_walks(empty) \
+                if self.delivery_impl == "ragged" else None
+            for batches in (empty, lat):
+                self._run_step(batches, self._owned[:u0].copy(),
+                               self._masks[:u0].copy(), None,
+                               None if walks is None else walks[:len(batches)],
+                               warmup=True)
+        except Exception:
+            logger.exception("device-plane warmup step failed")
+            self.disabled = True
+        self.steps = steps  # warmup doesn't count
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            except Exception:
+                logger.exception("device pump died during stop")
+
+    async def _pump(self) -> None:
+        c = self.config
+        loop = asyncio.get_running_loop()
+        gate = CoalesceGate(c.batch_window_s, c.coalesce_min_frames)
+        while True:
+            await self._kick.wait()
+            self._kick.clear()
+            await asyncio.sleep(0)  # let same-tick stagers land
+            staged = sum(r.slots - r.free_slots for r in self.rings)
+            wait = gate.wait_s(staged, loop.time())
+            if wait:
+                # steady trickle: coalesce one window; bursts after idle
+                # and saturated pipelines step now
+                await asyncio.sleep(wait)
+            t0 = time.perf_counter()
+            snap = self._snapshot()
+            if snap is None:
+                continue
+            t1 = time.perf_counter()
+            try:
+                self._step_inflight = True
+                try:
+                    jobs, pairs_s = await asyncio.to_thread(
+                        self._run_step, snap.batches, snap.owned,
+                        snap.masks, snap.state_rev, snap.walks)
+                finally:
+                    self._step_inflight = False
+                t2 = time.perf_counter()
+                gate.stepped(loop.time())
+                delivered = sum(self._egress(job) for job in jobs)
+                t3 = time.perf_counter()
+                self.messages_routed += delivered
+                self.last_step_seconds = (t1 - t0, t2 - t1 - pairs_s,
+                                          pairs_s)
+                self.recent_steps.append(StepTiming(
+                    t1 - t0, t2 - t1 - pairs_s, pairs_s, t3 - t2,
+                    sum(b.num_valid for b in snap.batches), delivered))
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception(
+                    "device routing step failed; re-routing the batch on "
+                    "the host path and disabling the device plane")
+                self.disabled = True
+                # frames staged (and acked STAGED) while the failing step
+                # ran in the worker thread sit in the fresh rings: drain
+                # them too, or they'd be lost with no fallback
+                late = [r.take_batch() for r in self.rings]
+                await self._host_fallback(snap.batches)
+                await self._host_fallback(late)
+                return
+            finally:
+                self._free_quarantined(snap)
+
+    def _egress(self, job: LaneDeliveries) -> int:
+        """Queue one lane's delivered wire frames to the local users'
+        connections, non-blocking and grouped per user, one ``Bytes`` per
+        frame shared by its receivers and released after the walk.
+        Returns the number of frames queued."""
+        cache: dict = {}
+
+        def frame_of(f: int) -> Bytes:
+            raw = cache.get(f)
+            if raw is None:
+                raw = cache[f] = Bytes(
+                    job.bytes_[f, :job.length[f]].tobytes())
+            return raw
+
+        try:
+            return egress_delivery_rows(self.broker, self.slots, job.users,
+                                        job.frames, frame_of)
+        finally:
+            for raw in cache.values():
+                raw.release()
+
+    async def _host_fallback(self, lane_batches) -> None:
+        """Deliver batches the device failed to route, via the host path.
+        Users only on purpose: any broker-bound fan-out for these messages
+        already ran on the host at staging time."""
+        from pushcdn_tpu_torch.broker.tasks.handlers import (
+            handle_broadcast_message,
+            handle_direct_message,
+        )
+        for b in lane_batches:
+            for i in np.flatnonzero(b.valid):
+                raw = Bytes(b.bytes_[i, :b.length[i]].tobytes())
+                try:
+                    message = deserialize(raw.data)
+                    if isinstance(message, Direct):
+                        await handle_direct_message(
+                            self.broker, bytes(message.recipient), raw,
+                            to_user_only=True)
+                    elif isinstance(message, Broadcast):
+                        await handle_broadcast_message(
+                            self.broker, list(message.topics), raw,
+                            to_users_only=True)
+                except Error:
+                    pass
+                finally:
+                    raw.release()
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _run_step(self, lane_batches, owned: np.ndarray, masks: np.ndarray,
-                  state_rev: int, walks):
-        """The device step against the snapshotted mirrors. Idle lanes
-        reuse cached device-side empty batches; zero-width byte stubs
-        stand in for the frame bytes (``gather_bytes=False``). Returns
-        the lanes' deliveries and the seconds spent extracting pairs."""
+                  state_rev: Optional[int], walks, warmup: bool = False):
+        """The device step against the snapshotted mirrors (under the
+        pump, in a worker thread). Idle lanes reuse cached device-side
+        empty batches; zero-width byte stubs stand in for the frame bytes
+        (``gather_bytes=False``). Returns the lanes' deliveries and the
+        seconds spent extracting pairs. ``warmup`` routes every lane
+        whatever its traffic (idle ragged lanes too) and delivers
+        nothing."""
         up = self._upload
 
         def build_state():
@@ -402,12 +665,14 @@ class DevicePlane:
 
         if walks is not None:
             for li, (b, walk) in enumerate(zip(lane_batches, walks)):
-                if not busy[li]:
+                if not busy[li] and not warmup:
                     continue  # an idle lane has no walk entries
                 res = routing_step_ragged_single(
-                    state, to_dev(li, b, True), up(walk.pages),
+                    state, to_dev(li, b, busy[li]), up(walk.pages),
                     up(walk.walk_page), up(walk.walk_frame))
                 out_user = res.out_user.cpu().numpy()
+                if warmup:
+                    continue
                 t = time.perf_counter()
                 if self.config.ragged_relaxed_order:
                     users, frames = ragged_pairs_grouped(
@@ -420,16 +685,19 @@ class DevicePlane:
                 if len(users):
                     jobs.append(LaneDeliveries(li, users, frames, b.length,
                                                b.bytes_))
-            self.ragged_steps += 1
+            if not warmup:
+                self.ragged_steps += 1
         else:
             batches = tuple(to_dev(li, b, busy[li])
                             for li, b in enumerate(lane_batches))
             result = routing_step_lanes_single(state, batches,
                                                gather_bytes=False)
             for li, lane in enumerate(result.lanes):
-                if not busy[li]:
+                if not busy[li] and not warmup:
                     continue  # an idle lane can't deliver: skip its copy
                 deliver = lane.deliver.cpu().numpy()
+                if warmup:
+                    continue
                 t = time.perf_counter()
                 users, frames = np.nonzero(deliver)
                 pairs_s += time.perf_counter() - t
@@ -437,5 +705,4 @@ class DevicePlane:
                     b = lane_batches[li]
                     jobs.append(LaneDeliveries(li, users, frames, b.length,
                                                b.bytes_))
-        self.messages_routed += sum(len(j.users) for j in jobs)
         return jobs, pairs_s

@@ -30,7 +30,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pushcdn_tpu_torch.broker.device_plane import StageResult
+from pushcdn_tpu_torch.broker.staging import StageResult
 from pushcdn_tpu_torch.broker.pump_common import (
     RevCache,
     TopicMaskCache,

@@ -273,7 +273,7 @@ def _drive(impl, W, relaxed, max_pages, ticks=14, seed=0):
                 items.append((KIND_DIRECT, payload, key))
             else:
                 items.append((6, payload, [0]))
-        got = plane.stage_batch(items)
+        got = plane.stage_frames(items)
         assert got == twin.stage_batch(items), f"tick {tick}"
         port_jobs = plane.step()
         ref_jobs = twin.step()
@@ -329,12 +329,61 @@ def test_quarantined_slot_is_not_reused_before_the_step():
     plane.on_user_added(b"c", [0])      # table full: a's slot quarantined
     assert plane.slots.slot_of(b"c") is None
     # while an unmirrored user exists, broadcasts stay on the host path
-    assert plane.stage_batch([(KIND_BROADCAST, b"x", [0])]) == \
+    assert plane.stage_frames([(KIND_BROADCAST, b"x", [0])]) == \
         [StageResult.INELIGIBLE]
     plane.on_user_removed(b"c")
-    assert plane.stage_batch([(KIND_BROADCAST, b"x", [0])]) == \
+    assert plane.stage_frames([(KIND_BROADCAST, b"x", [0])]) == \
         [StageResult.STAGED]
     (lane,) = plane.step()
     assert lane.users.tolist() == [1]   # only b; a's slot delivered nothing
     plane.on_user_added(b"d", [0])
     assert plane.slots.slot_of(b"d") == 0   # recycled after the step
+
+
+@pytest.mark.parametrize("inflight", [False, True])
+def test_broker_staging_api_and_idle_bypass_match_jax(inflight):
+    """``try_stage`` and ``stage_batch`` take decoded ``(message, raw)``
+    pairs as the JAX plane's do, and answer the same: an idle plane with
+    no step in flight sends a small batch to the host path at once; with
+    a step in flight it stages, so no frame overtakes the step."""
+    from pushcdn_tpu.broker.device_plane import DevicePlane as JaxPlane
+    from pushcdn_tpu.broker.device_plane import \
+        DevicePlaneConfig as JaxConfig
+    from pushcdn_tpu.proto import message as jax_message
+    from pushcdn_tpu.proto.limiter import Bytes as JaxBytes
+    from pushcdn_tpu_torch.proto import message as port_message
+    from pushcdn_tpu_torch.proto.limiter import Bytes
+    from pushcdn_tpu_torch.proto.message import (
+        Broadcast,
+        Direct,
+        Subscribe,
+        serialize,
+    )
+
+    kw = dict(num_user_slots=4, ring_slots=4, frame_bytes=64,
+              extra_lanes=((128, 2),), topic_words=1, bypass_max_items=2)
+    port = DevicePlane(DevicePlaneConfig(**kw), device="cpu")
+    ref = JaxPlane(None, JaxConfig(**kw))
+    frames = [serialize(m) for m in (
+        Broadcast([1], b"a"), Direct(b"u", b"b"), Broadcast([40], b"c"),
+        Direct(b"nobody", b"d"), Broadcast([1], b"e" * 100),
+        Broadcast([1], b"f" * 200), Subscribe([1]), Broadcast([1], b"g"))]
+    for plane, wrap, m in ((port, Bytes, port_message),
+                           (ref, JaxBytes, jax_message)):
+        plane.on_user_added(b"u", [1])
+        plane._step_inflight = inflight
+        plane.results = [plane.try_stage(m.deserialize(f), wrap(f))
+                         for f in frames[:2]]
+        plane.results += plane.stage_batch(
+            [(m.deserialize(f), wrap(f)) for f in frames[:2]])
+        plane.results += plane.stage_batch(
+            [(m.deserialize(f), wrap(f)) for f in frames])
+    assert [r.name for r in port.results] == [r.name for r in ref.results]
+    staged = [r.name for r in port.results[:4]]
+    assert staged == (["STAGED"] * 4 if inflight else ["INELIGIBLE"] * 4)
+    # with a step in flight the base lane is full by now: the small
+    # frames fall to the wide lane until it fills too
+    full = "FULL" if inflight else "STAGED"
+    assert [r.name for r in port.results[4:]] == [
+        "STAGED", "STAGED", "INELIGIBLE", "INELIGIBLE", full,
+        "INELIGIBLE", "INELIGIBLE", full]

@@ -54,9 +54,37 @@ plane = DevicePlane(DevicePlaneConfig(num_user_slots=8, ring_slots=4,
                                       frame_bytes=32, extra_lanes=(),
                                       bypass_max_items=0), device="cpu")
 plane.on_user_added(b"u", [1])
-plane.stage_batch([(5, b"hi", [1])])
+plane.stage_frames([(5, b"hi", [1])])
 (lane,) = plane.step()
 assert lane.users.tolist() == [0]
+
+import asyncio, os, tempfile
+from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+from pushcdn_tpu_torch.broker.test_harness import TestRun
+from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+from pushcdn_tpu_torch.proto.def_ import testing_run_def
+from pushcdn_tpu_torch.proto.message import Broadcast
+
+async def serve():
+    broker = await Broker.new(BrokerConfig(
+        run_def=testing_run_def(), keypair=DEFAULT_SCHEME.generate_keypair(seed=1),
+        discovery_endpoint=os.path.join(tempfile.mkdtemp(), "d.sqlite"),
+        public_advertise_endpoint="iso-pub", public_bind_endpoint="iso-pub",
+        private_advertise_endpoint="iso-priv", private_bind_endpoint="iso-priv",
+        device_plane=DevicePlaneConfig(num_user_slots=8, ring_slots=4,
+                                       frame_bytes=64, extra_lanes=(),
+                                       bypass_max_items=0),
+        device="cpu"))
+    await broker.start()
+    run = TestRun(broker=broker)
+    await run.inject_users([[0], [0]])
+    await run.send_message_as(run.user(0), Broadcast([0], b"hi"))
+    for u in run.connected_users:
+        await run.assert_received(u, Broadcast([0], b"hi"), timeout=5)
+    assert broker.device_plane.messages_routed == 2
+    await run.shutdown()
+
+asyncio.run(serve())
 assert not any(m == "jax" or m.startswith(("jax.", "pushcdn_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", len(names))
