@@ -542,7 +542,7 @@ def run_slice(impl: str, popularity: str, device, seed: int,
         check(got.shape == want.shape and (got == want).all(),
               f"{impl}/{popularity} tick {tick}: {len(got)} pairs, "
               f"oracle {len(want)}")
-        rows.append((stage_s, *plane.last_step_seconds, len(got)))
+        rows.append((stage_s, *plane.recent_steps[-1][:3], len(got)))
     return rows, plane
 
 

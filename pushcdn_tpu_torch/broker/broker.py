@@ -11,7 +11,9 @@ path: admission control, durable topics (retention), the sharded data
 plane and the operator drain (re-homing) are not copied yet, so
 ``admission``, ``durable`` and ``shard_runtime`` stay None and
 ``GET /drain`` is not registered. The device plane runs on
-``BrokerConfig.device`` (CUDA unless the caller passes ``"cpu"``).
+``BrokerConfig.device`` (CUDA unless the caller passes ``"cpu"``); on
+the card its pump is one of the supervised tasks, so a device step that
+fails brings the broker down after its frames took the host path.
 """
 
 from __future__ import annotations
@@ -404,6 +406,11 @@ class Broker:
                 spawn(listener_tasks.run_broker_listener_task(self),
                       name="broker-listener"),
             ]
+        plane = self.device_plane
+        if plane is not None and not plane.fails_open:
+            # a plane on the card ends its pump with the exception of a
+            # step that failed: the broker fails fast with it
+            self._tasks.append(plane.pump_task)
         if self.shard_runtime is not None:
             self._tasks.append(spawn(self.shard_runtime.run_ring_drain(),
                                      name="shard-ring-drain"))

@@ -43,9 +43,13 @@ Consistency design (single-writer, snapshot-per-step):
   quarantined slots are freed on the loop after it returns.
 - **Failure**: under the pump, a step that raises disables the plane and
   re-routes the failed batch and the frames staged meanwhile on the host
-  path (users only); staging then always answers INELIGIBLE and the
-  broker is a plain host broker again. The socket-free ``step()`` raises
-  to its caller.
+  path (users only), so no acknowledged frame is lost; staging then
+  always answers INELIGIBLE. On the CPU the broker serves on as a plain
+  host broker, as the JAX package's does; on the card the pump then ends
+  with the step's exception, and a warm-up that fails raises out of
+  :meth:`start`, so a kernel that does not build or launch brings the
+  broker down (``Broker.run_until_failure``) instead of passing as a
+  host broker. The socket-free ``step()`` raises to its caller.
 
 Egress is Python (``senders.egress_delivery_rows``); the JAX package's
 native egress engine is not copied yet.
@@ -71,7 +75,6 @@ from pushcdn_tpu_torch.broker.pump_common import (
     effective_users,
 )
 from pushcdn_tpu_torch.broker.staging import StageResult
-from pushcdn_tpu_torch.broker.tasks.senders import egress_delivery_rows
 from pushcdn_tpu_torch.ops.ragged_delivery import (
     RaggedInterest,
     ragged_pairs,
@@ -171,14 +174,16 @@ class LaneDeliveries(NamedTuple):
 
 
 class StepTiming(NamedTuple):
-    """One pump step, in seconds, with its frame and delivery counts."""
+    """One step, in seconds, with its frame and delivery counts."""
 
-    snapshot_s: float   # rings, mirrors and ragged walk on the loop
-    device_s: float     # upload, kernels and readback (worker thread)
-    pairs_s: float      # pair extraction (worker thread)
+    snapshot_s: float   # rings, mirrors and ragged walk (on the loop)
+    device_s: float     # upload, kernels and readback
+    pairs_s: float      # pair extraction
     egress_s: float     # delivered frames queued to the connections
+                        # (0 for the socket-free step())
     frames: int         # frames the step routed
-    deliveries: int     # frames queued to users
+    deliveries: int     # what messages_routed adds: the pairs step()
+                        # returns, or the frames the pump queued to users
 
 
 class _Snapshot(NamedTuple):
@@ -233,10 +238,7 @@ class DevicePlane:
         self.ragged_fallbacks = 0   # ticks that fell back to dense
         self.steps = 0
         self.messages_routed = 0
-        # seconds of the last step, split three ways: host snapshot and
-        # walk packing; upload, kernels and readback; pair extraction
-        self.last_step_seconds = (0.0, 0.0, 0.0)
-        # the pump's recent steps (StepTiming), newest last
+        # the recent steps (StepTiming), newest last
         self.recent_steps: collections.deque = collections.deque(
             maxlen=4096)
         self.disabled = False
@@ -246,6 +248,18 @@ class DevicePlane:
         self._kick = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._step_inflight = False
+
+    @property
+    def fails_open(self) -> bool:
+        """Whether a failed warm-up or pump step leaves the broker serving
+        on its host path (the CPU, as in the JAX package) rather than
+        raising (the card)."""
+        return self.device.type != "cuda"
+
+    @property
+    def pump_task(self) -> Optional[asyncio.Task]:
+        """The running pump, once :meth:`start` has spawned it."""
+        return self._task
 
     # ---- user lifecycle (observer hooks) ---------------------------------
 
@@ -472,22 +486,26 @@ class DevicePlane:
                                           snap.walks)
         finally:
             self._free_quarantined(snap)
-        device_s = time.perf_counter() - t1 - pairs_s
-        self.last_step_seconds = (t1 - t0, device_s, pairs_s)
-        self.messages_routed += sum(len(j.users) for j in out)
+        pairs = sum(len(j.users) for j in out)
+        self.recent_steps.append(StepTiming(
+            t1 - t0, time.perf_counter() - t1 - pairs_s, pairs_s, 0.0,
+            sum(b.num_valid for b in snap.batches), pairs))
+        self.messages_routed += pairs
         return out
 
     # ---- the pump (attached to a broker) ------------------------------------
 
     async def start(self) -> None:
         """Warm both lane shapes up off the event loop (the first launch
-        of each kernel builds and loads it), then spawn the pump."""
+        of each kernel builds and loads it), then spawn the pump. On the
+        card a warm-up that fails raises here."""
         await asyncio.to_thread(self._warmup)
         self._task = asyncio.create_task(self._pump(), name="device-pump")
 
     def _warmup(self) -> None:
         """Run the two shapes the pump uses once: all lanes at full size
-        and the latency-sliced base lane. A failure disables the plane."""
+        and the latency-sliced base lane. A failure disables a plane that
+        fails open and raises on the card."""
         empty = [r.take_batch() for r in self.rings]
         lat = [slice_batch(empty[0], self.config.latency_slots)]
         u0 = effective_users(0, self.config.num_user_slots)
@@ -501,9 +519,12 @@ class DevicePlane:
                                None if walks is None else walks[:len(batches)],
                                warmup=True)
         except Exception:
+            if not self.fails_open:
+                raise
             logger.exception("device-plane warmup step failed")
             self.disabled = True
-        self.steps = steps  # warmup doesn't count
+        finally:
+            self.steps = steps  # warmup doesn't count
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -547,8 +568,6 @@ class DevicePlane:
                 delivered = sum(self._egress(job) for job in jobs)
                 t3 = time.perf_counter()
                 self.messages_routed += delivered
-                self.last_step_seconds = (t1 - t0, t2 - t1 - pairs_s,
-                                          pairs_s)
                 self.recent_steps.append(StepTiming(
                     t1 - t0, t2 - t1 - pairs_s, pairs_s, t3 - t2,
                     sum(b.num_valid for b in snap.batches), delivered))
@@ -565,7 +584,9 @@ class DevicePlane:
                 late = [r.take_batch() for r in self.rings]
                 await self._host_fallback(snap.batches)
                 await self._host_fallback(late)
-                return
+                if self.fails_open:
+                    return
+                raise   # on the card: the broker goes down with it
             finally:
                 self._free_quarantined(snap)
 
@@ -574,6 +595,9 @@ class DevicePlane:
         connections, non-blocking and grouped per user, one ``Bytes`` per
         frame shared by its receivers and released after the walk.
         Returns the number of frames queued."""
+        from pushcdn_tpu_torch.broker.tasks.senders import (
+            egress_delivery_rows,
+        )
         cache: dict = {}
 
         def frame_of(f: int) -> Bytes:

@@ -65,6 +65,13 @@ def _plane_config(p, impl: str, **over):
 
 async def _start(p, plane_cfg):
     """A started broker of package ``p`` wrapped in its own TestRun."""
+    broker = await _new(p, plane_cfg)
+    await broker.start()
+    return p.harness.TestRun(broker=broker)
+
+
+async def _new(p, plane_cfg):
+    """A broker of package ``p``, built and not started."""
     uid = next(_UID)
     db = os.path.join(tempfile.mkdtemp(prefix="pushcdn-torch-test-"),
                       "discovery.sqlite")
@@ -80,9 +87,7 @@ async def _start(p, plane_cfg):
         private_bind_endpoint=f"torch-test-priv-{p.name}-{uid}",
         heartbeat_interval_s=3600, sync_interval_s=3600,
         whitelist_interval_s=3600, device_plane=plane_cfg, **extra)
-    broker = await p.broker.Broker.new(config)
-    await broker.start()
-    return p.harness.TestRun(broker=broker)
+    return await p.broker.Broker.new(config)
 
 
 async def _connect(p, run, key: bytes, topics):
@@ -400,6 +405,77 @@ async def test_device_plane_fail_open_to_host_path(monkeypatch):
         assert inbox.frames[a.public_key] == [first, late, after]
         assert inbox.frames[b.public_key] == [first, late]
         assert plane.messages_routed == 2
+    finally:
+        await run.shutdown()
+
+
+def _fail_steps(plane, monkeypatch, on_card: bool, warmup: bool):
+    """Make the plane's device step raise (its warm-up too when
+    ``warmup``), and make a CPU plane read as one on the card when
+    ``on_card``."""
+
+    def step(*args, **kwargs):
+        if kwargs.get("warmup") and not warmup:
+            return [], 0.0
+        raise RuntimeError("injected kernel failure")
+
+    if on_card:
+        monkeypatch.setattr(plane, "device", torch.device("cuda"))
+    monkeypatch.setattr(plane, "_run_step", step)
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+async def test_warmup_failure_raises_on_the_card_only(on_card, monkeypatch):
+    """A kernel that does not build or launch on the card stops the
+    broker's start; on the CPU the plane disables itself and the broker
+    starts as a host broker, as the JAX package's does."""
+    p = _pkg("port")
+    broker = await _new(p, _plane_config(p, "dense"))
+    plane = broker.device_plane
+    _fail_steps(plane, monkeypatch, on_card, warmup=True)
+    try:
+        if on_card:
+            with pytest.raises(RuntimeError, match="injected"):
+                await broker.start()
+            assert plane.pump_task is None and not broker._tasks
+        else:
+            await broker.start()
+            assert plane.disabled and plane.pump_task is not None
+            assert plane.pump_task not in broker._tasks
+    finally:
+        await broker.stop()
+
+
+async def test_step_failure_on_the_card_reroutes_then_ends_the_broker(
+        monkeypatch):
+    """On the card a step that raises still sends its frames out on the
+    host path, then ends the pump with the exception; the pump is one of
+    the broker's supervised tasks, so ``run_until_failure`` goes down
+    with it instead of serving on as a host broker."""
+    p = _pkg("port")
+    broker = await _new(p, _plane_config(p, "dense"))
+    plane = broker.device_plane
+    _fail_steps(plane, monkeypatch, on_card=True, warmup=False)
+    await broker.start()
+    run = p.harness.TestRun(broker=broker)
+    try:
+        assert plane.pump_task in broker._tasks
+        await run.inject_users([[0], [0]])
+        a, b = run.user(0), run.user(1)
+        inbox = _Inbox([a, b])
+        frame = _broadcast(b"in the failed step")
+        await a.remote.send_raw_many([frame], flush=True)
+        await inbox.wait_for({a.public_key: 1, b.public_key: 1})
+        inbox.close()
+        assert inbox.frames[a.public_key] == [frame]
+        assert inbox.frames[b.public_key] == [frame]
+        assert plane.disabled and plane.messages_routed == 0
+        # what run_until_failure waits on
+        done, _ = await asyncio.wait(broker._tasks, timeout=5,
+                                     return_when=asyncio.FIRST_COMPLETED)
+        assert done == {plane.pump_task}
+        with pytest.raises(RuntimeError, match="injected"):
+            plane.pump_task.result()
     finally:
         await run.shutdown()
 

@@ -336,6 +336,10 @@ def test_quarantined_slot_is_not_reused_before_the_step():
         [StageResult.STAGED]
     (lane,) = plane.step()
     assert lane.users.tolist() == [1]   # only b; a's slot delivered nothing
+    # the socket-free step records its timing as the pump does
+    (timing,) = plane.recent_steps
+    assert (timing.frames, timing.deliveries, timing.egress_s) == (1, 1, 0.0)
+    assert plane.messages_routed == 1
     plane.on_user_added(b"d", [0])
     assert plane.slots.slot_of(b"d") == 0   # recycled after the step
 
