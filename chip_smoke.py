@@ -60,7 +60,24 @@ Phases, each printing one JSON line:
    path on the same machine). Each run must deliver exactly the scalar
    oracle's frames to every user, in publisher order within each lane,
    route every delivery on the plane (``messages_routed``) without
-   disabling it, and launch its kernel; one ``broker`` line per run.
+   disabling it, and launch its kernel; one ``broker`` line per run;
+9. the cluster as processes, started as the README's quick start starts
+   it: ``python -m pushcdn_tpu_torch.bin.marshal`` and ``python -m
+   pushcdn_tpu_torch.bin.broker --device-plane`` as child processes on a
+   fresh discovery file, loopback TCP endpoints, TCP+TLS for users and
+   the binaries' own defaults otherwise (256 topics; 1024 user slots, the
+   1024 x 2048 B and 64 x 16384 B lanes). 1024 ``Client``s in this
+   process authenticate through the marshal over TCP+TLS with seeded
+   Ed25519 keys, 3 uniform topics each; 64 publish bursts of 2048 frames
+   in phase 8's mix. ``PUSHCDN_DELIVERY_IMPL=dense``, then ``ragged``: 2
+   uniform bursts, every client moves to zipf topics through
+   ``Client.subscribe``/``unsubscribe``, 1 zipf burst; then a broker
+   without a plane takes the uniform bursts. Each run must deliver
+   exactly the oracle's frames (as a multiset: the plane's idle bypass
+   sends some frames by the host path), a plane run's ``/metrics`` must
+   show ``cdn_device_messages_routed`` > 0 and its broker's exit line
+   launches of its kernel after the warm-up (none for the host path), and
+   both children must exit 0 on SIGTERM; one ``cluster`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -75,6 +92,7 @@ import struct
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -111,8 +129,14 @@ MESH = dict(SLICE, shards=4, ring_slots=512, frame_bytes=2048,
 # 64 of the users through a broker (bursts per popularity)
 BROKER = dict(SLICE, publishers=64, bursts={"uniform": 4, "zipf": 2},
               ring_slots=2048, frame_bytes=2048, extra_lane=(16384, 64))
+# the cluster phase: the broker binary's own defaults (256 topics, a
+# 1024-slot plane with the 1024 x 2048 B lane and the 64 x 16384 B lane),
+# as many TCP+TLS clients as the plane has user slots
+CLUSTER = dict(SLICE, users=1024, publishers=64, frame_bytes=2048,
+               bursts={"uniform": 2, "zipf": 1}, auth_concurrency=64)
 # every payload ends in (publisher, seq, send time in perf_counter ns)
 TAIL = struct.Struct("<IIq")
+BARRIER = 0xFFFFFFFF   # the publisher of a resubscription barrier
 
 
 def emit(phase: str, **fields) -> None:
@@ -904,38 +928,55 @@ def phase_mesh(devices, shape: dict = MESH):
 # ---------------------------------------------------------------------------
 
 
+class Burst(NamedTuple):
+    """One burst: per publisher its wire frames (send time 0) and its
+    messages as ``(direct, target, body without the send time)``; the
+    oracle's delivery codes, and per user the frame and payload bytes it
+    must receive."""
+
+    frames: list
+    messages: list
+    codes: np.ndarray
+    nbytes: np.ndarray
+    payload_bytes: np.ndarray
+
+
 class BrokerScenario:
-    """Seeded subscriptions and bursts for the broker phase, with the
+    """Seeded subscriptions and bursts for the broker phases, with the
     oracle's own view of who receives what. A delivery is coded
     ``uid << 40 | (publisher * 2 + lane) << 32 | seq``, lane 1 for a frame
-    wider than the base lane; ``seq`` rises through the run."""
+    wider than the base lane; ``seq`` rises through the run. User ``uid``
+    is ``keys[uid]`` (``user-<uid>`` by default)."""
 
-    def __init__(self, popularity: str, seed: int, shape: dict):
+    def __init__(self, popularity: str, seed: int, shape: dict, keys=None):
         self.rng = np.random.default_rng(seed)
         self.shape = shape
-        self.p = topic_weights(shape["topics"], popularity)
-        self.topics = [self.draw(shape["topics_per_user"])
-                       for _ in range(shape["users"])]
+        self.keys = keys or [b"user-%d" % u for u in range(shape["users"])]
+        self.subscribe(popularity)
+        self.filler = self.rng.integers(0, 256, 1 << 15,
+                                        dtype=np.uint8).tobytes()
+        self.seq = 0
+
+    def subscribe(self, popularity: str) -> None:
+        """Draw every user's topics anew under ``popularity``."""
+        self.p = topic_weights(self.shape["topics"], popularity)
+        self.topics = [self.draw(self.shape["topics_per_user"])
+                       for _ in range(self.shape["users"])]
         by_topic = {}
         for uid, topics in enumerate(self.topics):
             for t in topics:
                 by_topic.setdefault(t, []).append(uid)
         self.by_topic = {t: np.asarray(v, np.int64)
                          for t, v in by_topic.items()}
-        self.filler = self.rng.integers(0, 256, 1 << 15,
-                                        dtype=np.uint8).tobytes()
-        self.seq = 0
 
     def draw(self, k):
         return sorted({int(t) for t in self.rng.choice(
             self.shape["topics"], size=k, p=self.p)})
 
-    def burst(self):
-        """One burst of wire frames per publisher (send time 0), frame i
-        from publisher i % publishers: broadcasts on one topic (two for a
-        tenth of them), directs to any user, ``wide_frames`` frames for
-        the wide lane. Returns the frames and the oracle's delivery codes
-        and byte totals per user."""
+    def burst(self) -> Burst:
+        """One burst, frame i from publisher i % publishers: broadcasts on
+        one topic (two for a tenth of them), directs to any user,
+        ``wide_frames`` frames for the wide lane."""
         from pushcdn_tpu_torch.proto.message import (
             Broadcast,
             Direct,
@@ -945,8 +986,10 @@ class BrokerScenario:
         n, P, U = s["frames"], s["publishers"], s["users"]
         wide = set(rng.choice(n, s["wide_frames"], replace=False).tolist())
         frames = [[] for _ in range(P)]
+        messages = [[] for _ in range(P)]
         codes = []
         nbytes = np.zeros(U, np.int64)
+        payload_bytes = np.zeros(U, np.int64)
         for i in range(n):
             pub, seq = i % P, self.seq
             self.seq += 1
@@ -956,20 +999,25 @@ class BrokerScenario:
             body = self.filler[off:off + size] + TAIL.pack(pub, seq, 0)
             if rng.random() < s["direct_share"]:
                 uid = int(rng.integers(U))
-                frame = serialize(Direct(b"user-%d" % uid, body))
+                target = self.keys[uid]
+                frame = serialize(Direct(target, body))
                 uids = np.asarray([uid], np.int64)
             else:
                 k = 2 if rng.random() < s["two_topic_share"] else 1
-                topics = self.draw(k)
-                frame = serialize(Broadcast(topics, body))
+                target = self.draw(k)
+                frame = serialize(Broadcast(target, body))
                 uids = np.unique(np.concatenate(
                     [self.by_topic.get(t, np.empty(0, np.int64))
-                     for t in topics]))
+                     for t in target]))
             lane = int(len(frame) > s["frame_bytes"])
             frames[pub].append(frame)
+            messages[pub].append((isinstance(target, bytes), target,
+                                  body[:-8]))
             codes.append((uids << 40) | (((pub * 2 + lane) << 32) | seq))
             nbytes[uids] += len(frame)
-        return frames, np.concatenate(codes), nbytes
+            payload_bytes[uids] += len(body)
+        return Burst(frames, messages, np.concatenate(codes), nbytes,
+                     payload_bytes)
 
 
 async def broker_run(impl: str, popularity: str, seed: int, device,
@@ -1051,7 +1099,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
             busy_s = 0.0
             want_total = 0
             try:
-                for frames, codes, _ in bursts:
+                for frames, _, codes, _, _ in bursts:
                     want_total += len(codes)
                     t0 = time.perf_counter_ns()
                     for pub, pub_frames in enumerate(frames):
@@ -1084,7 +1132,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
             os.remove(db)
 
     # every user's frames against the oracle, and publisher order per lane
-    want = np.sort(np.concatenate([c for _, c, _ in bursts]))
+    want = np.sort(np.concatenate([b.codes for b in bursts]))
     have = np.sort(np.concatenate(
         [np.empty(0, np.int64)]
         + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
@@ -1093,7 +1141,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
           f"{label}: the {len(have)} deliveries differ from the oracle's "
           f"{len(want)}")
     check(np.array_equal(np.asarray(got_bytes),
-                         sum(b for _, _, b in bursts)),
+                         sum(b.nbytes for b in bursts)),
           f"{label}: received bytes differ from the oracle's")
     for uid, c in enumerate(got):
         c = np.asarray(c, np.int64)
@@ -1175,6 +1223,411 @@ def phase_broker(device, shape: dict = BROKER):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the cluster as processes, clients over TCP+TLS
+# ---------------------------------------------------------------------------
+
+
+def raise_fd_limit() -> int:
+    """Raise this process's soft limit of open files to the hard limit
+    (children inherit it); returns the new limit."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for sock in socks:
+        sock.bind(("127.0.0.1", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    return ports
+
+
+def log_tail(path: str, n: int = 4000) -> str:
+    try:
+        with open(path, "rb") as f:
+            return f.read().decode(errors="replace")[-n:]
+    except OSError:
+        return ""
+
+
+def log_fields(path: str, what: str):
+    """The JSON of the last ``<what> {...}`` line the broker binary wrote,
+    or None."""
+    found = None
+    for line in log_tail(path, 1 << 20).splitlines():
+        at = line.find(what + " {")
+        if at >= 0:
+            found = json.loads(line[at + len(what) + 1:])
+    return found
+
+
+class Children:
+    """The child processes of one run, each logging to its own file; any
+    left running is killed when the run ends, on every path."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.procs = {}
+        self.logs = {}
+
+    def spawn(self, name: str, *args: str, env=None):
+        from pushcdn_tpu_torch.bin.common import spawn_binary
+        log = os.path.join(HERE, ".build", f"{self.tag}-{name}.log")
+        if os.path.exists(log):
+            os.remove(log)
+        self.logs[name] = log
+        self.procs[name] = spawn_binary(name, *args, env_extra=env,
+                                        log_path=log)
+
+    def check_alive(self, label: str) -> None:
+        for name, proc in self.procs.items():
+            rc = proc.poll()
+            check(rc is None, f"{label}: the {name} process exited with {rc}:"
+                  f"\n{log_tail(self.logs[name])}")
+
+    async def wait_for_line(self, name: str, what: str, label: str,
+                            timeout: float):
+        try:
+            async with asyncio.timeout(timeout):
+                while (fields := log_fields(self.logs[name], what)) is None:
+                    self.check_alive(label)
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: no {what!r} line from the {name} "
+                               f"in {timeout} s:\n"
+                               f"{log_tail(self.logs[name])}") from None
+        return fields
+
+    def terminate(self, label: str, timeout: float = 60.0) -> None:
+        """SIGTERM every child; each must exit 0 within ``timeout``."""
+        import signal
+        for proc in self.procs.values():
+            proc.send_signal(signal.SIGTERM)
+        rcs = {}
+        for name, proc in self.procs.items():
+            try:
+                rcs[name] = proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                rcs[name] = None
+        for name, rc in rcs.items():
+            check(rc == 0, f"{label}: the {name} process exited with {rc} "
+                  f"on SIGTERM:\n{log_tail(self.logs[name])}")
+
+    def kill(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def http_get(port: int, path: str):
+    """``(status, body)`` of a GET on the loopback, or None when refused."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError:
+        return None
+
+
+def metric(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def percentiles_ms(latency_ns) -> dict:
+    lat = np.asarray(latency_ns, np.float64) / 1e6
+    return dict(publish_to_receive_ms_p50=float(np.percentile(lat, 50)),
+                publish_to_receive_ms_p99=float(np.percentile(lat, 99)))
+
+
+async def cluster_run(impl: str, seed: int, shape: dict,
+                      device=None) -> dict:
+    """One run of phase 9: a marshal and a broker (with a device plane of
+    ``impl``, or none for ``impl="host"``) as child processes on a fresh
+    discovery file, ``users`` clients authenticating through the marshal
+    over TCP+TLS, the uniform bursts, and for a plane run every client's
+    subscriptions redrawn zipf through ``Client.subscribe`` and
+    ``unsubscribe`` and the zipf bursts. The plane runs on the binary's
+    default device (CUDA) unless ``device`` names another. Every check of
+    the run, then its numbers."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import TcpTls
+
+    label = f"cluster {impl}"
+    U, P = shape["users"], shape["publishers"]
+    pairs = [DEFAULT_SCHEME.generate_keypair(seed=seed * 1_000_000 + u)
+             for u in range(U)]
+    sc = BrokerScenario("uniform", seed, shape,
+                        keys=[k.public_key for k in pairs])
+    first_topics = sc.topics
+    plan = [("uniform", sc.burst())
+            for _ in range(shape["bursts"]["uniform"])]
+    if impl != "host":
+        sc.subscribe("zipf")
+        plan += [("zipf", sc.burst()) for _ in range(shape["bursts"]["zipf"])]
+    tag = f"cluster-{impl}-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    pub, priv, broker_metrics, marshal, marshal_metrics = free_ports(5)
+    kids = Children(tag)
+    clients = []
+    drains = []
+    t_run = time.perf_counter()
+    try:
+        kids.spawn("broker", "--discovery-endpoint", db,
+                   "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                   "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                   "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                   "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{broker_metrics}",
+                   "--user-transport", "tcp+tls", "--broker-transport", "tcp",
+                   *(["--device-plane"] if impl != "host" else []),
+                   *(["--device", str(device)] if device else []),
+                   env={"PUSHCDN_DELIVERY_IMPL": impl} if impl != "host"
+                   else None)
+        kids.spawn("marshal", "--discovery-endpoint", db,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{marshal_metrics}",
+                   "--user-transport", "tcp+tls")
+        # the broker logs this line once its plane has warmed up
+        serving = await kids.wait_for_line("broker", "broker serving", label,
+                                           timeout=180)
+        startup_s = time.perf_counter() - t_run
+        try:
+            async with asyncio.timeout(60):   # the broker registered
+                while (await asyncio.to_thread(http_get, marshal_metrics,
+                                               "/readyz") or (0,))[0] != 200:
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: the marshal was not ready in 60 s:"
+                               f"\n{log_tail(kids.logs['marshal'])}") from None
+
+        clients = [Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}", keypair=kp,
+            protocol=TcpTls, subscribed_topics=set(topics)))
+            for kp, topics in zip(pairs, first_topics)]
+        gate = asyncio.Semaphore(shape["auth_concurrency"])
+
+        async def authenticate(client):
+            async with gate:
+                await client.ensure_initialized()
+
+        t0 = time.perf_counter()
+        try:
+            async with asyncio.timeout(300):
+                await asyncio.gather(*(authenticate(c) for c in clients))
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: the clients did not all "
+                               "authenticate in 300 s") from None
+        auth_s = time.perf_counter() - t0
+        kids.check_alive(label)
+
+        got = [[] for _ in range(U)]
+        got_bytes = np.zeros(U, np.int64)
+        latency_ns = []
+        seen = [0, 0, 0]   # frames, barriers, perf_counter ns of the last
+
+        async def drain(uid, client):
+            box = got[uid]
+            while True:
+                messages = await client.receive_messages()
+                now = time.perf_counter_ns()
+                for m in messages:
+                    body = m.message
+                    pub_, seq, sent = TAIL.unpack_from(body,
+                                                       len(body) - TAIL.size)
+                    if pub_ == BARRIER:
+                        seen[1] += 1
+                        continue
+                    box.append((pub_ * 2 << 32) | seq)
+                    got_bytes[uid] += len(body)
+                    latency_ns.append(now - sent)
+                    seen[0] += 1
+                seen[2] = now
+
+        drains = [asyncio.create_task(drain(uid, c))
+                  for uid, c in enumerate(clients)]
+
+        async def publish(burst):
+            async def one(pub_):
+                client = clients[pub_]
+                for direct, target, head in burst.messages[pub_]:
+                    body = head + struct.pack("<q", time.perf_counter_ns())
+                    await client.send_message(
+                        Direct(target, body) if direct
+                        else Broadcast(target, body))
+            await asyncio.gather(*(one(p) for p in range(P)))
+
+        async def resubscribe():
+            """Every client moves to its zipf topics, then sends itself a
+            barrier: once it is back, the broker has applied the change."""
+            async def one(uid):
+                old, new = first_topics[uid], sc.topics[uid]
+                await clients[uid].unsubscribe([t for t in old
+                                                if t not in new])
+                await clients[uid].subscribe(new)
+                await clients[uid].send_message(Direct(
+                    pairs[uid].public_key, TAIL.pack(BARRIER, uid, 0)))
+            await asyncio.gather(*(one(u) for u in range(U)))
+            async with asyncio.timeout(120):
+                while seen[1] < U:
+                    await asyncio.sleep(0.005)
+
+        runs = {}
+        want_total = 0
+        resubscribe_s = None
+        try:
+            for popularity, burst in plan:
+                if popularity == "zipf" and resubscribe_s is None:
+                    t0 = time.perf_counter()
+                    await resubscribe()
+                    resubscribe_s = time.perf_counter() - t0
+                want_total += len(burst.codes)
+                first_latency = len(latency_ns)
+                t0 = time.perf_counter_ns()
+                await publish(burst)
+                async with asyncio.timeout(300):
+                    while seen[0] < want_total:
+                        kids.check_alive(label)
+                        await asyncio.sleep(0.002)
+                r = runs.setdefault(popularity, dict(
+                    bursts=0, deliveries=0, busy_s=0.0, latency_ns=[]))
+                r["bursts"] += 1
+                r["deliveries"] += len(burst.codes)
+                r["busy_s"] += (seen[2] - t0) / 1e9
+                r["latency_ns"] += latency_ns[first_latency:]
+            # a duplicate or a stray frame would land in this window
+            await asyncio.sleep(0.3)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {seen[0]} of {want_total} frames "
+                               f"and {seen[1]} barriers arrived") from None
+        finally:
+            for t in drains:
+                t.cancel()
+            ends = await asyncio.gather(*drains, return_exceptions=True)
+        check(all(isinstance(e, asyncio.CancelledError) for e in ends),
+              f"{label}: a client's receive failed: "
+              f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
+        scraped = await asyncio.to_thread(http_get, broker_metrics, "/metrics")
+        check(scraped is not None and scraped[0] == 200,
+              f"{label}: the broker's /metrics did not answer")
+        routed_metric = metric(scraped[1], "cdn_device_messages_routed")
+        for c in clients:
+            c.close()
+        kids.terminate(label)
+        exit_fields = log_fields(kids.logs["broker"], "device plane exit")
+        check(exit_fields is not None,
+              f"{label}: the broker logged no exit line:\n"
+              f"{log_tail(kids.logs['broker'])}")
+    finally:
+        for t in drains:
+            t.cancel()
+        for c in clients:
+            c.close()
+        kids.kill()
+        for suffix in ("", "-wal", "-shm"):
+            if os.path.exists(db + suffix):
+                os.remove(db + suffix)
+
+    # every client's frames against the oracle, as a multiset: the idle
+    # bypass may send a few frames of a burst by the host path
+    lane_bit = np.int64(1) << 32
+    want = np.sort(np.concatenate([b.codes for _, b in plan]) & ~lane_bit)
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries differ from the oracle's "
+          f"{len(want)}")
+    check(np.array_equal(got_bytes, sum(b.payload_bytes for _, b in plan)),
+          f"{label}: received payload bytes differ from the oracle's")
+    barriers = U if impl != "host" else 0
+    traffic = {k: exit_fields["launches"][k] - serving["launches"][k]
+               for k in exit_fields["launches"]}
+    kernel = {"dense": "delivery_matrix_cuda",
+              "ragged": "ragged_delivery_cuda"}.get(impl)
+    if kernel is None:
+        check(not any(exit_fields["launches"].values()),
+              f"{label}: the host-path broker launched a kernel")
+        check(routed_metric == 0 and "messages_routed" not in exit_fields,
+              f"{label}: a host-path broker routed on a plane")
+    else:
+        check(routed_metric > 0, f"{label}: /metrics shows "
+              "cdn_device_messages_routed 0")
+        check(routed_metric == exit_fields["messages_routed"],
+              f"{label}: /metrics and the exit line disagree on the routed "
+              "count")
+        check(traffic[kernel] > 0, f"{label}: the broker never launched "
+              f"{kernel} after its warm-up")
+        check(not exit_fields["disabled"],
+              f"{label}: the device plane disabled itself")
+        check(exit_fields["delivery_impl"] == impl,
+              f"{label}: the plane switched to {exit_fields['delivery_impl']}")
+    busy = sum(r["busy_s"] for r in runs.values())
+    return dict(
+        impl=impl,
+        popularity="uniform, then zipf" if impl != "host" else "uniform",
+        path="device plane in the broker process" if kernel
+        else "the port's host path, same machine",
+        clients=U, transport="tcp+tls", topics=shape["topics"],
+        publishers=P, frames_per_burst=shape["frames"],
+        startup_s=startup_s, auth_s=auth_s, resubscribe_s=resubscribe_s,
+        deliveries=len(want), matches_oracle=True,
+        delivered_msgs_per_s=len(want) / busy,
+        **percentiles_ms([x for r in runs.values() for x in r["latency_ns"]]),
+        by_popularity={
+            k: dict(bursts=r["bursts"], deliveries=r["deliveries"],
+                    delivered_msgs_per_s=r["deliveries"] / r["busy_s"],
+                    **percentiles_ms(r["latency_ns"]))
+            for k, r in runs.items()},
+        messages_routed=routed_metric,
+        routed_share=routed_metric / (len(want) + barriers),
+        steps=exit_fields.get("steps"),
+        broker_step_ms_median=exit_fields.get("step_ms_median"),
+        delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
+        ragged_delivery_cuda=traffic["ragged_delivery_cuda"],
+        warmup_launches=serving["launches"],
+        busy_s=busy, run_s=time.perf_counter() - t_run)
+
+
+def phase_cluster(shape: dict = CLUSTER, device=None):
+    """Phase 9: dense and ragged planes, then the host path. Returns each
+    run's line and the brokers' launches over the runs' traffic; fails
+    unless each plane run's broker launched its kernel."""
+    need = 2 * shape["users"] + 256
+    limit = raise_fd_limit()
+    check(limit >= need, f"cluster: {shape['users']} TCP+TLS clients need "
+          f"{need} open files; the hard limit is {limit}")
+    rows = {}
+    for impl in ("dense", "ragged", "host"):
+        rows[impl] = row = asyncio.run(cluster_run(impl, 90, shape, device))
+        emit("cluster", **row)
+    launches = {"dense": sum(r["delivery_matrix_cuda"] for r in rows.values()),
+                "ragged": sum(r["ragged_delivery_cuda"]
+                              for r in rows.values())}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1189,6 +1642,7 @@ def nvidia_smi(query: str, *fmt: str) -> str:
 
 def main() -> int:
     import torch
+    raise_fd_limit()   # before any child process: they inherit it
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1353,8 +1807,15 @@ def main() -> int:
     launches["dense"] += broker_launches["dense"]
     launches["ragged"] += broker_launches["ragged"]
 
+    # 9. the cluster as processes; the broker processes' launches over
+    # their runs' traffic join the kernel line's
+    _, cluster_launches = phase_cluster()
+    launches["dense"] += cluster_launches["dense"]
+    launches["ragged"] += cluster_launches["ragged"]
+
     # the kernel line reads the uniform slice tick; the launches are the
-    # slice phase's, the mesh phase's MeshGroup runs' and the broker's
+    # slice phase's, the mesh phase's MeshGroup runs', the broker's and
+    # the broker processes' of the cluster phase
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

@@ -17,9 +17,12 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
 - ``broker.mesh_group`` — a socket-free ``MeshGroup``: N broker shards in
   one process, one mesh step per tick, per-shard pairs
 - ``broker.broker``, ``broker.tasks``, ``broker.test_harness`` and
-  ``proto`` — the single-broker host data path over the Memory
-  transport, copied from the JAX package (``native`` stands in for its
-  C++ host routines and answers None, so they run in Python)
+  ``proto`` — the single-broker host data path over the Memory, TCP and
+  TCP+TLS transports, copied from the JAX package (``native`` stands in
+  for its C++ host routines and answers None, so they run in Python)
+- ``marshal``, ``client``, ``testing.cluster`` and ``bin`` — the marshal,
+  the elastic client, the in-process cluster and the ``broker``,
+  ``marshal`` and ``client`` binaries, copied the same way
 
 The package imports torch and numpy only: nothing of JAX and nothing of
 ``pushcdn_tpu``. Entry points run on ``cuda`` unless the caller passes

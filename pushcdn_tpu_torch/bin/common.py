@@ -1,0 +1,191 @@
+"""Shared CLI plumbing: logging init (JSON opt-in via env, parity with the
+reference's RUST_LOG_FORMAT=json switch, cdn-broker/src/binaries/broker.rs:80-91),
+transport/scheme lookup by name, seeded keys.
+
+A copy of ``pushcdn_tpu.bin.common`` cut to what the port has: the
+transports are ``memory``, ``tcp`` and ``tcp+tls`` (no QUIC), the scheme is
+``ed25519`` (no BLS), discovery is the embedded SQLite file (no Redis), and
+the io_uring and fused-pump selectors are gone with their engines
+(ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import os
+import signal as signal_mod
+import sys
+from typing import Optional, Type
+
+from pushcdn_tpu_torch.proto.crypto.signature import (
+    Ed25519Scheme,
+    KeyPair,
+    SignatureScheme,
+)
+from pushcdn_tpu_torch.proto.def_ import RunDef, ConnectionDef
+from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+from pushcdn_tpu_torch.proto.topic import TopicSpace
+from pushcdn_tpu_torch.proto.transport import Memory, Tcp, TcpTls
+from pushcdn_tpu_torch.proto.transport.base import Protocol
+
+TRANSPORTS = {"tcp": Tcp, "tcp+tls": TcpTls, "memory": Memory}
+SCHEMES = {"ed25519": Ed25519Scheme}
+
+
+class _JsonFormatter(logging.Formatter):
+    def format(self, record: logging.LogRecord) -> str:
+        return json.dumps({
+            "ts": self.formatTime(record),
+            "level": record.levelname,
+            "target": record.name,
+            "message": record.getMessage(),
+        })
+
+
+def tune_gc(threshold0: int = 50_000) -> None:
+    """Server-style GC tuning for the message hot path: the router
+    allocates ~20 small objects per delivery, and CPython's default gen-0
+    threshold (700) turns that into thousands of collections per second —
+    with the periodic gen-2 passes scanning the whole (torch-sized) heap.
+    Raise the thresholds and freeze the post-startup heap so steady-state
+    collections only walk the young, message-sized garbage. Call once
+    after bootstrap (binaries and benches do)."""
+    import gc
+    gc.collect()
+    gc.freeze()
+    gc.set_threshold(threshold0, 50, 100)
+
+
+def init_logging(verbosity: int = 0) -> None:
+    """Env-driven log format: ``PUSHCDN_LOG_FORMAT=json`` switches to
+    structured JSON lines (reference: RUST_LOG_FORMAT=json)."""
+    level = [logging.INFO, logging.DEBUG][min(verbosity, 1)]
+    handler = logging.StreamHandler(sys.stderr)
+    if os.environ.get("PUSHCDN_LOG_FORMAT") == "json":
+        handler.setFormatter(_JsonFormatter())
+    else:
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)-5s %(name)s: %(message)s"))
+    logging.basicConfig(level=level, handlers=[handler], force=True)
+
+
+def drain_grace_s() -> float:
+    """How long a binary keeps serving (with /readyz already 503) between
+    receiving SIGINT/SIGTERM and tearing its listeners down —
+    ``PUSHCDN_DRAIN_GRACE_S`` seconds, default 0 (immediate)."""
+    raw = os.environ.get("PUSHCDN_DRAIN_GRACE_S", "").strip()
+    if not raw:
+        return 0.0
+    try:
+        return max(float(raw), 0.0)
+    except ValueError:
+        return 0.0
+
+
+def install_drain_signals(event: asyncio.Event, on_signal=None) -> bool:
+    """Route SIGINT/SIGTERM to ``event.set()`` instead of
+    KeyboardInterrupt, so the server binaries can drain gracefully:
+    readiness flips false first, listeners close after the grace window.
+    Returns False where signal handlers are unavailable (non-main thread,
+    Windows proactor) — callers keep the KeyboardInterrupt fallback.
+
+    ``on_signal`` (optional) runs in the handler alongside the latch —
+    the sharded broker's parent uses it to PROPAGATE the drain: readiness
+    flips false on every worker shard first (the callback forwards
+    SIGTERM), the workers serve out ``PUSHCDN_DRAIN_GRACE_S``, and the
+    parent reaps them before its own listeners close."""
+    loop = asyncio.get_running_loop()
+
+    def _fire() -> None:
+        event.set()
+        if on_signal is not None:
+            try:
+                on_signal()
+            except Exception:
+                pass
+
+    installed = False
+    for sig in (signal_mod.SIGINT, signal_mod.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, _fire)
+            installed = True
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass
+    return installed
+
+
+def transport_by_name(name: str) -> Type[Protocol]:
+    try:
+        return TRANSPORTS[name]
+    except KeyError:
+        raise SystemExit(
+            f"unknown transport {name!r}; pick from {sorted(TRANSPORTS)}")
+
+
+def scheme_by_name(name: str) -> Type[SignatureScheme]:
+    try:
+        return SCHEMES[name]
+    except KeyError:
+        raise SystemExit(
+            f"unknown scheme {name!r}; pick from {sorted(SCHEMES)} (the "
+            "bls-bn254 scheme is not ported yet: ROADMAP.md, Queue A)")
+
+
+def run_def_from_args(broker_transport: str, user_transport: str,
+                      discovery_endpoint: str, num_topics: int,
+                      global_permits: bool = False,
+                      scheme: str = "ed25519") -> RunDef:
+    if discovery_endpoint.startswith("redis://"):
+        raise SystemExit("Redis discovery is not ported yet (ROADMAP.md, "
+                         "Queue A); pass a SQLite file path")
+    sig = scheme_by_name(scheme)
+    return RunDef(
+        broker_def=ConnectionDef(protocol=transport_by_name(broker_transport),
+                                 scheme=sig),
+        user_def=ConnectionDef(protocol=transport_by_name(user_transport),
+                               scheme=sig),
+        discovery=Embedded,
+        topics=TopicSpace.range(num_topics),
+        global_permits=global_permits,
+    )
+
+
+def keypair_from_seed(seed: Optional[int],
+                      scheme: str = "ed25519") -> KeyPair:
+    return scheme_by_name(scheme).generate_keypair(seed=seed)
+
+
+def spawn_binary(name: str, *args: str, env_extra=None, capture=True,
+                 log_path=None):
+    """Launch ``pushcdn_tpu_torch.bin.<name>`` as a child process with the
+    repo prepended to PYTHONPATH (setdefault breaks under any preexisting
+    PYTHONPATH, e.g. an accelerator site dir) — the one spawner
+    ``chip_smoke.py`` and the binary tests share.
+
+    ``capture=False`` sends the child's output to /dev/null instead of a
+    pipe — REQUIRED for spawners that never drain the pipe: a chatty
+    child blocks forever once the 64 KiB pipe buffer fills. ``log_path`` redirects
+    output to a file instead: the pipe-wedge fix that still preserves
+    crash output for postmortems (overrides ``capture``)."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (repo + os.pathsep + env["PYTHONPATH"]
+                         if env.get("PYTHONPATH") else repo)
+    if env_extra:
+        env.update(env_extra)
+    argv = [sys.executable, "-m", f"pushcdn_tpu_torch.bin.{name}", *args]
+    if log_path is not None:
+        with open(log_path, "ab") as sink_file:
+            return subprocess.Popen(argv, env=env, stdout=sink_file,
+                                    stderr=subprocess.STDOUT)
+    sink = subprocess.PIPE if capture else subprocess.DEVNULL
+    return subprocess.Popen(
+        argv, env=env, stdout=sink,
+        stderr=subprocess.STDOUT if capture else subprocess.DEVNULL,
+        text=capture)

@@ -422,6 +422,12 @@ class Broker:
         """Fail-fast: the first core task to exit brings the broker down
         (parity select! at lib.rs:302-318)."""
         await self.start()
+        await self.wait_until_failure()
+
+    async def wait_until_failure(self) -> None:
+        """The supervision half of :meth:`run_until_failure`, for a caller
+        that ran :meth:`start` itself (the broker binary reads the plane's
+        warm-up in between)."""
         done, _pending = await asyncio.wait(
             self._tasks, return_when=asyncio.FIRST_COMPLETED)
         task = done.pop()

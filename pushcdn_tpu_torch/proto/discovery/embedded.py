@@ -18,6 +18,7 @@ the async interface is kept so the Redis implementation can be truly async.
 from __future__ import annotations
 
 import asyncio
+import random
 import secrets
 import sqlite3
 import time
@@ -36,6 +37,9 @@ from pushcdn_tpu_torch.proto.error import ErrorKind, bail
 # of hanging. Tests shrink both knobs to keep the slow path fast.
 LOCKED_RETRY_SCHEDULE = (0.05, 0.1, 0.2, 0.4)
 BUSY_TIMEOUT_MS = 5000
+# Opening a fresh file from several processes at once (Embedded.new):
+# each delay is jittered by 0.5-1.5x so the racers fall out of step.
+OPEN_RETRY_SCHEDULE = (0.01, 0.02, 0.05, 0.1, 0.2, 0.4, 0.8)
 
 
 def _is_locked(exc: sqlite3.OperationalError) -> bool:
@@ -99,25 +103,42 @@ class Embedded(DiscoveryClient):
         # loop turns (python's legacy implicit transactions did, and a
         # second process then hits 'database is locked' past busy_timeout)
         self._db = sqlite3.connect(path, check_same_thread=False,
-                                   isolation_level=None)
-        self._db.execute("PRAGMA journal_mode=WAL")
-        self._db.execute(f"PRAGMA busy_timeout={int(BUSY_TIMEOUT_MS)}")
-        # Permits/heartbeats are ephemeral (30-60 s TTLs): losing the tail
-        # of the WAL on power loss only forces reconnects, so skip the
-        # per-commit fsync — it was most of the auth handshake's floor
-        self._db.execute("PRAGMA synchronous=NORMAL")
-        self._db.executescript(_SCHEMA)
-        self._db.commit()
+                                   isolation_level=None,
+                                   timeout=BUSY_TIMEOUT_MS / 1000)
+        try:
+            self._db.execute("PRAGMA journal_mode=WAL")
+            # Permits/heartbeats are ephemeral (30-60 s TTLs): losing the
+            # tail of the WAL on power loss only forces reconnects, so skip
+            # the per-commit fsync — it was most of the auth handshake's
+            # floor
+            self._db.execute("PRAGMA synchronous=NORMAL")
+            self._db.executescript(_SCHEMA)
+            self._db.commit()
+        except BaseException:
+            self._db.close()
+            raise
 
     @classmethod
     async def new(cls, endpoint: str,
                   identity: Optional[BrokerIdentifier] = None,
                   global_permits: bool = False) -> "Embedded":
-        """``endpoint`` is a filesystem path (or ":memory:" for throwaway)."""
-        try:
-            return cls(endpoint, identity, global_permits)
-        except sqlite3.Error as exc:
-            bail(ErrorKind.FILE, f"cannot open embedded discovery at {endpoint}", exc)
+        """``endpoint`` is a filesystem path (or ":memory:" for throwaway).
+
+        Processes that open one fresh file at once race for the lock that
+        ``journal_mode=WAL`` and the schema take. SQLite answers the loser
+        'database is locked' at once, without waiting out the busy
+        timeout (it would deadlock the two readers that both want to
+        write), so the open is retried on a short jittered schedule."""
+        for delay in OPEN_RETRY_SCHEDULE + (None,):
+            try:
+                return cls(endpoint, identity, global_permits)
+            except sqlite3.Error as exc:
+                locked = (isinstance(exc, sqlite3.OperationalError)
+                          and _is_locked(exc))
+                if delay is None or not locked:
+                    bail(ErrorKind.FILE,
+                         f"cannot open embedded discovery at {endpoint}", exc)
+            await asyncio.sleep(delay * random.uniform(0.5, 1.5))
 
     # -- membership ---------------------------------------------------------
 

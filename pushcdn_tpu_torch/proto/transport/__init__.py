@@ -6,8 +6,11 @@ cdn-proto/src/connection/protocols/mod.rs:85-306). Implementations:
 
 - ``memory`` — in-process duplex streams behind a global registry (test
   infra; parity protocols/memory.rs)
+- ``tcp`` — plain TCP with TCP_NODELAY (parity protocols/tcp.rs)
+- ``tcp_tls`` — TLS over TCP with the local/prod CA scheme (parity
+  protocols/tcp_tls.rs)
 
-The TCP, TCP+TLS, QUIC and io_uring transports of ``pushcdn_tpu.proto
+The QUIC transport and the io_uring engine of ``pushcdn_tpu.proto
 .transport`` are not copied yet.
 
 The device data plane's inter-broker "transport" is NOT one of these: broker
@@ -22,3 +25,5 @@ from pushcdn_tpu_torch.proto.transport.base import (  # noqa: F401
     UnfinalizedConnection,
 )
 from pushcdn_tpu_torch.proto.transport.memory import Memory  # noqa: F401
+from pushcdn_tpu_torch.proto.transport.tcp import Tcp  # noqa: F401
+from pushcdn_tpu_torch.proto.transport.tcp_tls import TcpTls  # noqa: F401

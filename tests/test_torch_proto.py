@@ -303,3 +303,64 @@ def test_build_info_names_torch_not_jax():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         want = "cuda"
     assert f'backend="{want}"' in line and line.endswith(" 1")
+
+
+# ---------------------------------------------------------------------------
+# embedded discovery: one fresh file opened by several processes at once
+# ---------------------------------------------------------------------------
+
+_OPENER = r"""
+import asyncio, sys, time
+from pushcdn_tpu_torch.proto.discovery.base import BrokerIdentifier
+from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+
+root, start, gap, rounds, me = sys.argv[1:]
+start, gap, rounds = float(start), float(gap), int(rounds)
+
+async def main():
+    for r in range(rounds):
+        at = start + r * gap                   # every opener in step
+        time.sleep(max(at - time.time() - 0.002, 0))
+        while time.time() < at:
+            pass
+        disc = await Embedded.new(f"{root}/r{r}.sqlite",
+                                  identity=BrokerIdentifier(f"p{me}", f"q{me}"))
+        await disc.perform_heartbeat(int(me), 60.0)
+        await disc.close()
+
+asyncio.run(main())
+"""
+
+
+def test_embedded_opens_one_fresh_file_from_many_processes(tmp_path):
+    """Six processes open each of 20 fresh files at the same instant and
+    write a heartbeat: none may see 'database is locked' (the WAL switch
+    of a fresh file answers the loser of its lock race at once)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+
+    procs, rounds = 6, 20
+    start = time.time() + 8          # past every process's imports
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    children = [subprocess.Popen(
+        [sys.executable, "-c", _OPENER, str(tmp_path), str(start), "0.1",
+         str(rounds), str(i)], cwd=root, stderr=subprocess.PIPE, text=True)
+        for i in range(procs)]
+    errors = [c.communicate(timeout=90)[1] for c in children]
+    assert [c.returncode for c in children] == [0] * procs, \
+        "\n".join(e[-600:] for e in errors if e)
+
+    async def rows(r):
+        disc = await Embedded.new(str(tmp_path / f"r{r}.sqlite"))
+        try:
+            return sorted(b.public_advertise_endpoint
+                          for b in await disc.get_other_brokers())
+        finally:
+            await disc.close()
+
+    for r in range(rounds):
+        assert asyncio.run(rows(r)) == [f"p{i}" for i in range(procs)]
