@@ -503,20 +503,25 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
                         broker.connections.unsubscribe_user_from(public_key,
                                                                  pruned)
                     elif isinstance(message, SubscribeFrom):
-                        # durable replay subscribe (ISSUE 14): registration
-                        # + ring snapshot + replay enqueue in one
-                        # synchronous block (the handover invariant)
+                        # no durable topics here: served as the JAX broker
+                        # serves it with retention off — an explicit topic
+                        # is a plain subscribe (nothing to replay), and a
+                        # pattern matches no bound name, so it binds nothing
                         adm = broker.admission
                         if adm is not None and \
                                 not adm.allow_subscribe(connection):
                             adm.shed_subscribe(public_key, connection,
                                                egress)
                             continue
-                        durable = broker.durable
-                        if durable is None or not durable.handle_subscribe_from(
-                                public_key, message, connection):
+                        if message.pattern:
+                            continue
+                        pruned, bad = topics.prune([message.topic])
+                        if bad:
+                            # unknown topic ⇒ disconnect (Subscribe parity)
                             alive = False
                             break
+                        broker.connections.subscribe_user_to(public_key,
+                                                             pruned)
                     else:
                         # users may not send auth or sync messages
                         # post-handshake

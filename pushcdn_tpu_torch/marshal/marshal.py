@@ -7,7 +7,9 @@ marshal is stateless (all state lives in discovery) and horizontally
 scalable.
 
 A copy of ``pushcdn_tpu.marshal.marshal`` without the BLS key-cache
-gauges: the BLS scheme is not copied yet.
+gauges and the batching signature verifier: the BLS scheme, the only one
+that batches, is not copied yet, so every signature is checked inline
+with ``scheme.verify``.
 """
 
 from __future__ import annotations
@@ -58,10 +60,6 @@ class Marshal:
         # /readyz state: cached discovery probe
         self._discovery_probe: tuple = (False, "not probed yet")
         self._discovery_probe_at: Optional[float] = None
-        # amortize concurrent pairing checks under connection storms
-        # (no-op pass-through for schemes without verify_batch)
-        from pushcdn_tpu_torch.proto.crypto.batch import BatchVerifier
-        self.batch_verifier = BatchVerifier(config.run_def.user_def.scheme)
 
     @classmethod
     async def new(cls, config: MarshalConfig) -> "Marshal":
@@ -130,8 +128,7 @@ class Marshal:
             async with asyncio.timeout(self.config.auth_timeout_s):
                 public_key, permit = await marshal_auth.verify_user(
                     connection, self.discovery,
-                    self.run_def.user_def.scheme,
-                    verifier=self.batch_verifier)
+                    self.run_def.user_def.scheme)
             await connection.soft_close()
         except (Error, asyncio.TimeoutError) as exc:
             logger.info("marshal auth failed: %r", exc)

@@ -45,9 +45,10 @@ async def verify_user(connection: Connection, discovery: DiscoveryClient,
     """Run the marshal side of the handshake on one fresh connection.
 
     Returns ``(user_public_key, permit)`` after replying with the permit and
-    the chosen broker's public endpoint. ``verifier`` (an optional
-    crypto.batch.BatchVerifier) amortizes concurrent pairing checks under
-    connection storms; semantics are identical to ``scheme.verify``.
+    the chosen broker's public endpoint. ``verifier`` (optional: an object
+    with an async ``verify`` of ``scheme.verify``'s arguments) can amortize
+    concurrent pairing checks under connection storms; without it the
+    signature is checked inline with ``scheme.verify``.
     """
     # Frame-level trace strip: a client that sampled this connection set
     # the kind-tag trace flag on its auth frame (proto.trace); the span is

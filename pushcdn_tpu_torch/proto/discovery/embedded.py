@@ -37,9 +37,6 @@ from pushcdn_tpu_torch.proto.error import ErrorKind, bail
 # of hanging. Tests shrink both knobs to keep the slow path fast.
 LOCKED_RETRY_SCHEDULE = (0.05, 0.1, 0.2, 0.4)
 BUSY_TIMEOUT_MS = 5000
-# Opening a fresh file from several processes at once (Embedded.new):
-# each delay is jittered by 0.5-1.5x so the racers fall out of step.
-OPEN_RETRY_SCHEDULE = (0.01, 0.02, 0.05, 0.1, 0.2, 0.4, 0.8)
 
 
 def _is_locked(exc: sqlite3.OperationalError) -> bool:
@@ -47,22 +44,27 @@ def _is_locked(exc: sqlite3.OperationalError) -> bool:
     return "locked" in msg or "busy" in msg
 
 
-async def _locked_retry(op, what: str):
-    """Run the synchronous sqlite write ``op`` with bounded backoff on
-    lock contention; other OperationalErrors propagate unchanged."""
+async def _locked_retry(op, what: str, kind: ErrorKind = ErrorKind.CONNECTION,
+                        jitter: bool = False):
+    """Run the synchronous sqlite operation ``op`` with bounded backoff on
+    lock contention; other OperationalErrors propagate unchanged, and a
+    lock that outlasts the schedule bails with ``kind``. ``jitter`` scales
+    each delay by 0.5-1.5x so racers that failed together fall out of
+    step."""
     for delay in LOCKED_RETRY_SCHEDULE:
         try:
             return op()
         except sqlite3.OperationalError as exc:
             if not _is_locked(exc):
                 raise
-        await asyncio.sleep(delay)
+        await asyncio.sleep(delay * random.uniform(0.5, 1.5) if jitter
+                            else delay)
     try:
         return op()
     except sqlite3.OperationalError as exc:
         if not _is_locked(exc):
             raise
-        bail(ErrorKind.CONNECTION, f"discovery store busy: {what}", exc)
+        bail(kind, f"discovery store busy: {what}", exc)
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS brokers (
@@ -128,17 +130,14 @@ class Embedded(DiscoveryClient):
         ``journal_mode=WAL`` and the schema take. SQLite answers the loser
         'database is locked' at once, without waiting out the busy
         timeout (it would deadlock the two readers that both want to
-        write), so the open is retried on a short jittered schedule."""
-        for delay in OPEN_RETRY_SCHEDULE + (None,):
-            try:
-                return cls(endpoint, identity, global_permits)
-            except sqlite3.Error as exc:
-                locked = (isinstance(exc, sqlite3.OperationalError)
-                          and _is_locked(exc))
-                if delay is None or not locked:
-                    bail(ErrorKind.FILE,
-                         f"cannot open embedded discovery at {endpoint}", exc)
-            await asyncio.sleep(delay * random.uniform(0.5, 1.5))
+        write), so the open is retried as a write is, with jitter."""
+        try:
+            return await _locked_retry(
+                lambda: cls(endpoint, identity, global_permits),
+                f"open {endpoint}", ErrorKind.FILE, jitter=True)
+        except sqlite3.Error as exc:
+            bail(ErrorKind.FILE,
+                 f"cannot open embedded discovery at {endpoint}", exc)
 
     # -- membership ---------------------------------------------------------
 

@@ -415,11 +415,11 @@ async def test_cluster_delivers_what_the_jax_cluster_delivers(scenario):
 @pytest.mark.parametrize("call", ["subscribe_from", "last_value",
                                   "subscribe_pattern"])
 async def test_replay_subscribes_need_the_durable_topics_not_yet_ported(call):
-    """``SubscribeFrom`` reaches the broker's durable topics, which the
-    port has not copied: the JAX broker (retention off) subscribes an
-    explicit topic and keeps the user, the port's broker disconnects the
-    sender, as its receive loop does for any message it cannot serve.
-    Either way the client heals: it re-dials and replays the topic."""
+    """``SubscribeFrom`` replays from the broker's durable topics, which
+    the port has not copied. Both brokers serve it as the JAX broker does
+    with retention off: an explicit topic is a plain subscribe that keeps
+    the user and delivers the topic's next broadcast, a pattern binds
+    nothing, and an unknown topic kicks as ``Subscribe`` does."""
     args = {"subscribe_from": (0, 0), "last_value": (0,),
             "subscribe_pattern": ("consensus.*",)}[call]
     out = {}
@@ -429,18 +429,35 @@ async def test_replay_subscribes_need_the_durable_topics_not_yet_ported(call):
             cluster = await p.cluster(num_brokers=1).start()
             try:
                 alice = cluster.client(seed=91, topics=[])
+                bob = cluster.client(seed=92, topics=[])
                 await alice.ensure_initialized()
+                await bob.ensure_initialized()
                 conn = alice._connection
                 await getattr(alice, call)(*args)
                 await asyncio.sleep(0.2)
                 broker = cluster.brokers[0]
-                out[name] = (conn.is_closed,
-                             broker.connections.num_users,
-                             sorted(broker.connections.user_topics
-                                    .get_values_of_key(alice.public_key)))
+                state = (conn.is_closed, broker.connections.num_users,
+                         sorted(broker.connections.user_topics
+                                .get_values_of_key(alice.public_key)))
+                await bob.send_broadcast_message([0], b"after")
+                await bob.send_direct_message(alice.public_key, b"marker")
+                got = await _recv(p, alice, 5)
+                if got == ["broadcast", b"after"]:
+                    got = await _recv(p, alice, 5)
+                    state += (b"after",)
+                assert got == ["direct", b"marker"]
+                # 42 is outside the test topic space: the broker kicks
+                await conn.send_message(p.msg.SubscribeFrom(topic=42, seq=0),
+                                        flush=True)
+                await asyncio.sleep(0.2)
+                out[name] = state + (conn.is_closed,)
                 alice.close()
+                bob.close()
             finally:
                 await cluster.stop()
-    want_jax = (False, 1, [] if call == "subscribe_pattern" else [0])
-    assert out["jax"] == want_jax
-    assert out["port"] == (True, 0, [])
+    if call == "subscribe_pattern":
+        want = (False, 2, [], True)
+    else:
+        want = (False, 2, [0], b"after", True)
+    assert out["jax"] == want
+    assert out["port"] == want
