@@ -77,7 +77,27 @@ Phases, each printing one JSON line:
    sends some frames by the host path), a plane run's ``/metrics`` must
    show ``cdn_device_messages_routed`` > 0 and its broker's exit line
    launches of its kernel after the warm-up (none for the host path), and
-   both children must exit 0 on SIGTERM; one ``cluster`` line per run.
+   both children must exit 0 on SIGTERM; one ``cluster`` line per run;
+10. four broker shards serving users through the mesh group — phase 6's
+   shape in brokers: a ``MeshBrokerGroup`` on the 4 shards folded onto the
+   card (4096 user slots, 512 x 2048 B base-lane slots and the (16384,
+   32, 8) lane per shard, 64-slot direct buckets, 8 mask words), 1024
+   users injected on each shard's broker over the Memory transport as in
+   phase 8, 3 topics each of 256 drawn uniform or zipf(1/rank), 64 of
+   them (16 a shard) publishing bursts of 2048 frames in phase 8's mix,
+   directs to users on any shard. Runs: (1) the per-array exchange, 3
+   uniform bursts, every user moved to zipf topics, 1 zipf burst; (2) the
+   fused exchange, 2 uniform bursts, every tick counting one collective;
+   (3) on that group, shard 3's broker stopped, 1 uniform burst from the
+   survivors' publishers (directs to its users take the host path and
+   reach no one); (4) the same four brokers without a group, joined by
+   host links, 2 uniform bursts; (5) a small ``MeshCluster`` on the card,
+   a marshal and one authenticated ``Client`` per shard, a cross-shard
+   broadcast and direct each arriving exactly once. Each run's deliveries
+   must equal the scalar oracle's (as a multiset, and per publisher in
+   send order on each path: size lane, broadcast or direct), the group
+   must route every one without disabling itself and launch the dense
+   kernel; one ``mesh_broker`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -134,6 +154,9 @@ BROKER = dict(SLICE, publishers=64, bursts={"uniform": 4, "zipf": 2},
 # as many TCP+TLS clients as the plane has user slots
 CLUSTER = dict(SLICE, users=1024, publishers=64, frame_bytes=2048,
                bursts={"uniform": 2, "zipf": 1}, auth_concurrency=64)
+# the mesh-broker phase: the mesh phase's shards, lanes and users in four
+# brokers, 16 of each shard's users publishing
+MESH_BROKER = dict(MESH, publishers=64)
 # every payload ends in (publisher, seq, send time in perf_counter ns)
 TAIL = struct.Struct("<IIq")
 BARRIER = 0xFFFFFFFF   # the publisher of a resubscription barrier
@@ -959,6 +982,7 @@ class BrokerScenario:
 
     def subscribe(self, popularity: str) -> None:
         """Draw every user's topics anew under ``popularity``."""
+        self.popularity = popularity
         self.p = topic_weights(self.shape["topics"], popularity)
         self.topics = [self.draw(self.shape["topics_per_user"])
                        for _ in range(self.shape["users"])]
@@ -973,17 +997,22 @@ class BrokerScenario:
         return sorted({int(t) for t in self.rng.choice(
             self.shape["topics"], size=k, p=self.p)})
 
-    def burst(self) -> Burst:
-        """One burst, frame i from publisher i % publishers: broadcasts on
-        one topic (two for a tenth of them), directs to any user,
-        ``wide_frames`` frames for the wide lane."""
+    def burst(self, pubs=None, alive=None) -> Burst:
+        """One burst, frame i from publisher ``pubs[i % len(pubs)]`` (by
+        default users 0..publishers-1): broadcasts on one topic (two for
+        a tenth of them), directs to any user, ``wide_frames`` frames for
+        the wide lane. ``frames[j]`` and ``messages[j]`` are publisher
+        ``pubs[j]``'s. Only users marked in ``alive`` (default: all)
+        receive."""
         from pushcdn_tpu_torch.proto.message import (
             Broadcast,
             Direct,
             serialize,
         )
         s, rng = self.shape, self.rng
-        n, P, U = s["frames"], s["publishers"], s["users"]
+        n, U = s["frames"], s["users"]
+        pubs = list(range(s["publishers"])) if pubs is None else list(pubs)
+        P = len(pubs)
         wide = set(rng.choice(n, s["wide_frames"], replace=False).tolist())
         frames = [[] for _ in range(P)]
         messages = [[] for _ in range(P)]
@@ -991,7 +1020,7 @@ class BrokerScenario:
         nbytes = np.zeros(U, np.int64)
         payload_bytes = np.zeros(U, np.int64)
         for i in range(n):
-            pub, seq = i % P, self.seq
+            pub, seq = pubs[i % P], self.seq
             self.seq += 1
             size = int(rng.integers(4096, 16001)) if i in wide \
                 else int(rng.integers(16, 513))
@@ -1009,10 +1038,12 @@ class BrokerScenario:
                 uids = np.unique(np.concatenate(
                     [self.by_topic.get(t, np.empty(0, np.int64))
                      for t in target]))
+            if alive is not None:
+                uids = uids[alive[uids]]
             lane = int(len(frame) > s["frame_bytes"])
-            frames[pub].append(frame)
-            messages[pub].append((isinstance(target, bytes), target,
-                                  body[:-8]))
+            frames[i % P].append(frame)
+            messages[i % P].append((isinstance(target, bytes), target,
+                                    body[:-8]))
             codes.append((uids << 40) | (((pub * 2 + lane) << 32) | seq))
             nbytes[uids] += len(frame)
             payload_bytes[uids] += len(body)
@@ -1628,6 +1659,489 @@ def phase_cluster(shape: dict = CLUSTER, device=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: four broker shards serving users through the mesh group
+# ---------------------------------------------------------------------------
+
+
+class MeshBrokers:
+    """One setup of phase 10: ``shards`` brokers on one discovery file,
+    user ``uid`` injected over the Memory transport on broker ``uid %
+    shards`` (the harness's way, no auth), and a receiver draining every
+    user. With ``group`` the brokers are the shards of a
+    ``MeshBrokerGroup`` on ``devices`` and dial no host links; without,
+    they are plain brokers joined by host links (the reference
+    architecture)."""
+
+    def __init__(self, name: str, shape: dict, sc: BrokerScenario, devices,
+                 group: bool, fused=None):
+        self.name, self.shape, self.sc = name, shape, sc
+        self.devices, self.use_group, self.fused = devices, group, fused
+        self.brokers = []
+        self.stopped = set()
+        self.group = None
+        self.remotes = []
+        self.drains = []
+        U = shape["users"]
+        self.got = [[] for _ in range(U)]
+        # per delivery: whether it was a direct (a mesh group's direct
+        # lanes are paths of their own beside its broadcast lanes)
+        self.got_direct = [[] for _ in range(U)]
+        self.got_bytes = np.zeros(U, np.int64)
+        self.latency_ns = []
+        self.seen = [0, 0]   # frames received, perf_counter ns of the last
+
+    async def start(self) -> None:
+        from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+        from pushcdn_tpu_torch.broker.mesh_group import (
+            MeshBrokerGroup,
+            MeshGroupConfig,
+        )
+        from pushcdn_tpu_torch.broker.tasks.handlers import user_receive_loop
+        from pushcdn_tpu_torch.broker.tasks.heartbeat import heartbeat_once
+        from pushcdn_tpu_torch.ops import delivery_kernel as dk
+        from pushcdn_tpu_torch.parallel.mesh import make_broker_mesh
+        from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+        from pushcdn_tpu_torch.proto.def_ import testing_run_def
+        from pushcdn_tpu_torch.proto.message import KIND_DIRECT
+        from pushcdn_tpu_torch.proto.topic import TopicSpace
+        from pushcdn_tpu_torch.proto.transport.memory import (
+            gen_testing_connection_pair,
+        )
+        from pushcdn_tpu_torch.proto.util import AbortOnDropHandle
+
+        sh, B = self.shape, self.shape["shards"]
+        build = os.path.join(HERE, ".build")
+        os.makedirs(build, exist_ok=True)
+        self.db = os.path.join(build, f"smoke-{self.name}-{os.getpid()}.sqlite")
+        if self.use_group:
+            self.group = MeshBrokerGroup(
+                make_broker_mesh(B, devices=self.devices), MeshGroupConfig(
+                    num_user_slots=sh["users"], ring_slots=sh["ring_slots"],
+                    frame_bytes=sh["frame_bytes"],
+                    extra_lanes=(sh["extra_lane"],),
+                    direct_bucket_slots=sh["direct_bucket_slots"],
+                    topic_words=sh["topic_words"],
+                    fused_collective=self.fused))
+        run_def = testing_run_def(topics=TopicSpace.range(sh["topics"]))
+        for i in range(B):
+            ep = f"smoke-{self.name}-{os.getpid()}-b{i}"
+            b = await Broker.new(BrokerConfig(
+                run_def=run_def,
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=70),
+                discovery_endpoint=self.db,
+                public_advertise_endpoint=f"{ep}-pub",
+                public_bind_endpoint=f"{ep}-pub",
+                private_advertise_endpoint=f"{ep}-priv",
+                private_bind_endpoint=f"{ep}-priv",
+                heartbeat_interval_s=3600, sync_interval_s=3600,
+                whitelist_interval_s=3600, form_mesh=not self.use_group))
+            if self.group is not None:
+                self.group.attach(b, i)
+            self.brokers.append(b)
+        warm = dk.LAUNCHES
+        for b in self.brokers:   # the group warms both shapes up once
+            await b.start()
+        self.warm_launches = dk.LAUNCHES - warm
+        for uid, topics in enumerate(self.sc.topics):
+            broker = self.brokers[uid % B]
+            local, remote = await gen_testing_connection_pair(broker.limiter)
+            task = asyncio.create_task(
+                user_receive_loop(broker, self.sc.keys[uid], local))
+            broker.connections.add_user(self.sc.keys[uid], local,
+                                        list(topics), AbortOnDropHandle(task))
+            self.remotes.append(remote)
+        base = sh["frame_bytes"]
+
+        async def drain(uid, remote):
+            box, direct = self.got[uid], self.got_direct[uid]
+            while True:
+                raws = await remote.recv_raw_many()
+                now = time.perf_counter_ns()
+                for raw in raws:
+                    d = raw.data
+                    pub, seq, sent = TAIL.unpack_from(d, len(d) - TAIL.size)
+                    box.append(((pub * 2 + (len(d) > base)) << 32) | seq)
+                    direct.append(d[0] & 0x7F == KIND_DIRECT)
+                    self.got_bytes[uid] += len(d)
+                    self.latency_ns.append(now - sent)
+                    raw.release()
+                self.seen[0] += len(raws)
+                self.seen[1] = now
+
+        self.drains = [asyncio.create_task(drain(uid, r))
+                       for uid, r in enumerate(self.remotes)]
+        if not self.use_group:
+            # host links as the reference forms them: every broker
+            # registers, then dials; the full syncs on each new link carry
+            # the users' claims and interest
+            for _ in range(2):
+                for b in self.brokers:
+                    await heartbeat_once(b)
+            want = {str(b.identity): {t for uid in range(i, len(
+                self.sc.topics), B) for t in self.sc.topics[uid]}
+                for i, b in enumerate(self.brokers)}
+            async with asyncio.timeout(120):
+                while not all(
+                        b.connections.num_brokers == B - 1
+                        and len(b.connections.direct_map) == sh["users"]
+                        and all(set(b.connections.broker_topics
+                                    .get_values_of_key(o)) == t
+                                for o, t in want.items()
+                                if o != str(b.identity))
+                        for b in self.brokers):
+                    await asyncio.sleep(0.05)
+
+    def move_users(self, popularity: str) -> None:
+        """Every user's topics drawn anew under ``popularity`` and applied
+        at its broker (unsubscribe, then subscribe), as the user's own
+        ``Unsubscribe``/``Subscribe`` would be."""
+        old = self.sc.topics
+        self.sc.subscribe(popularity)
+        B = self.shape["shards"]
+        for uid, (was, now) in enumerate(zip(old, self.sc.topics)):
+            conns = self.brokers[uid % B].connections
+            key = self.sc.keys[uid]
+            gone = sorted(set(was) - set(now))
+            if gone:
+                conns.unsubscribe_user_from(key, gone)
+            conns.subscribe_user_to(key, list(now))
+
+    async def stop_shard(self, shard: int) -> None:
+        """Stop one shard's broker; its users' receivers stop first, since
+        their connections close with it."""
+        dead = [self.drains[uid] for uid in range(shard, len(self.remotes),
+                                                  self.shape["shards"])]
+        for t in dead:
+            t.cancel()
+        await asyncio.gather(*dead, return_exceptions=True)
+        await self.brokers[shard].stop()
+        self.stopped.add(shard)
+
+    async def publish(self, label: str, bursts, pubs) -> float:
+        """Publish each burst (publisher ``pubs[j]`` sends its frames in
+        one write, stamped at send time) and wait until it has drained.
+        Returns the seconds from each burst's first send to its last
+        receive, summed."""
+        busy_s = 0.0
+        want = self.seen[0]
+        try:
+            for b in bursts:
+                want += len(b.codes)
+                t0 = time.perf_counter_ns()
+                for j, pub_frames in enumerate(b.frames):
+                    stamp = struct.pack("<q", time.perf_counter_ns())
+                    await self.remotes[pubs[j]].send_raw_many(
+                        [f[:-8] + stamp for f in pub_frames])
+                async with asyncio.timeout(300):
+                    while self.seen[0] < want:
+                        await asyncio.sleep(0.002)
+                busy_s += (self.seen[1] - t0) / 1e9
+            # a duplicate or a stray frame would land in this window
+            await asyncio.sleep(0.2)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {self.seen[0]} of {want} frames "
+                               "arrived") from None
+        check(self.seen[0] == want, f"{label}: {self.seen[0] - want} frames "
+              "more than the oracle's arrived")
+        return busy_s
+
+    def check_oracle(self, label: str, bursts, since: list) -> None:
+        """Every user's frames since ``since`` (per-user counts) against
+        the bursts' oracle, and publisher order per path: per size lane,
+        broadcasts and directs apart, since a group step's egress walks
+        its broadcast lanes before its direct lanes, as the JAX group's
+        does."""
+        want = np.sort(np.concatenate([b.codes for b in bursts]))
+        new = [c[n:] for c, n in zip(self.got, since)]
+        have = np.sort(np.concatenate(
+            [np.empty(0, np.int64)]
+            + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+               for uid, c in enumerate(new)]))
+        check(have.shape == want.shape and (have == want).all(),
+              f"{label}: the {len(have)} deliveries differ from the "
+              f"oracle's {len(want)}")
+        check(np.array_equal(self.got_bytes - self.bytes_since,
+                             sum(b.nbytes for b in bursts)),
+              f"{label}: received bytes differ from the oracle's")
+        for uid, (c, n) in enumerate(zip(self.got, since)):
+            c = np.asarray(c[n:], np.int64)
+            path = (c >> 32) * 2 + np.asarray(self.got_direct[uid][n:], bool)
+            order = np.argsort(path, kind="stable")
+            hi, seq = path[order], (c & 0xFFFFFFFF)[order]
+            check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
+                  f"{label}: user {uid} got a publisher's frames out of "
+                  "order")
+
+    def mark(self) -> list:
+        """Per-user delivery counts so far, the start of a check."""
+        self.bytes_since = self.got_bytes.copy()
+        return [len(c) for c in self.got]
+
+    async def shutdown(self) -> None:
+        for t in self.drains:
+            t.cancel()
+        ends = await asyncio.gather(*self.drains, return_exceptions=True)
+        for r in self.remotes:
+            r.close()
+        for i, b in enumerate(self.brokers):
+            if i not in self.stopped:
+                await b.stop()
+        if os.path.exists(self.db):
+            os.remove(self.db)
+        check(all(isinstance(e, asyncio.CancelledError) for e in ends),
+              f"{self.name}: a receiver failed: "
+              f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
+
+
+class CollectiveCounter:
+    """Wraps a group's mesh step and counts the collectives of each call
+    (``router.trace_collectives``)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.counts = []
+
+    def __call__(self, *args):
+        from pushcdn_tpu_torch.parallel.router import trace_collectives
+        before = trace_collectives()
+        out = self.step(*args)
+        self.counts.append(trace_collectives() - before)
+        return out
+
+
+async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
+    """Phase 10's runs, in order: (1) the per-array group, uniform then
+    zipf; (2) the fused group, uniform, (3) and on it again with shard
+    3's broker stopped; (4) the same brokers with no group, over host
+    links; (5) a small ``MeshCluster`` with real clients. Returns each
+    run's line."""
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.proto.transport.memory import Memory
+
+    B, U, P = shape["shards"], shape["users"], shape["publishers"]
+    pubs = list(range(P))   # publisher p is user p, on shard p % B
+    rows = {}
+    prev_window = Memory.set_duplex_window(256 * 1024)
+    try:
+        async def group_run(mb, label, plan, pubs, fused_ticks=False,
+                            alive=None):
+            """Publish ``plan`` [(popularity, n bursts)] through ``mb``'s
+            group and check it; the line of the run."""
+            g = mb.group
+            counter = g.step_fn = CollectiveCounter(g.step_fn)
+            steps0, routed0 = g.steps, g.messages_routed
+            recent0 = len(g.recent_steps)
+            since = mb.mark()
+            lat0 = len(mb.latency_ns)
+            bursts, busy, by_pop = [], {}, {}
+            dk.LAUNCHES = 0
+            for popularity, n in plan:
+                if popularity != mb.sc.popularity:
+                    mb.move_users(popularity)
+                these = [mb.sc.burst(pubs, alive) for _ in range(n)]
+                lat = len(mb.latency_ns)
+                busy[popularity] = await mb.publish(label, these, pubs)
+                by_pop[popularity] = dict(
+                    delivered_msgs_per_s=sum(len(b.codes) for b in these)
+                    / busy[popularity],
+                    **percentiles_ms(mb.latency_ns[lat:]))
+                bursts += these
+            launches = dk.LAUNCHES
+            mb.check_oracle(label, bursts, since)
+            deliveries = sum(len(b.codes) for b in bursts)
+            routed = g.messages_routed - routed0
+            steps = g.steps - steps0
+            check(not g.disabled, f"{label}: the group disabled itself")
+            check(routed == deliveries, f"{label}: the group routed "
+                  f"{routed} of {deliveries} deliveries; the rest took the "
+                  "host path")
+            check(steps > 0 and launches > 0,
+                  f"{label}: {steps} steps, {launches} launches of "
+                  "delivery_matrix_cuda")
+            if fused_ticks:
+                check(set(counter.counts) == {1}, f"{label}: a fused tick "
+                      f"counted {sorted(set(counter.counts))} collectives")
+            r = np.asarray(list(g.recent_steps)[recent0:],
+                           np.float64).reshape(-1, 6)
+            med = (lambda col: float(np.median(r[:, col]) * 1e3)) if len(r) \
+                else (lambda col: None)
+            g.step_fn = counter.step
+            return dict(
+                run=label, shards=B, devices=[str(d) for d in g.mesh.devices],
+                exchange="fused" if g.step_fn.fused else "per-array",
+                live_shards=int(g._liveness.sum()), users=U,
+                topics=shape["topics"], publishers=len(pubs),
+                bursts={p: n for p, n in plan},
+                frames_per_burst=shape["frames"], deliveries=deliveries,
+                matches_oracle=True, fifo_per_publisher_and_lane=True,
+                delivered_msgs_per_s=deliveries / sum(busy.values()),
+                by_popularity=by_pop,
+                **percentiles_ms(mb.latency_ns[lat0:]),
+                busy_s=sum(busy.values()), steps=steps,
+                frames_per_step_median=float(np.median(r[:, 4]))
+                if len(r) else None,
+                snapshot_ms_median=med(0), device_step_ms_median=med(1),
+                pair_extract_ms_median=med(2), egress_ms_median=med(3),
+                routed_share=routed / deliveries,
+                delivery_matrix_cuda=launches,
+                launches_per_step=launches / steps,
+                collectives_per_tick=sorted(set(counter.counts)),
+                warmup_launches=mb.warm_launches,
+                host_links=[b.connections.num_brokers for b in mb.brokers
+                            if b.listeners_bound],
+                overflow_seen=g.overflow_seen)
+
+        # 1. the per-array exchange (the default on one device)
+        t = time.perf_counter()
+        mb = MeshBrokers("meshbroker-per-array", shape,
+                         BrokerScenario("uniform", seed, shape), devices,
+                         group=True)
+        await mb.start()
+        try:
+            rows["per-array"] = await group_run(
+                mb, "mesh broker per-array", [("uniform", 3), ("zipf", 1)],
+                pubs)
+        finally:
+            await mb.shutdown()
+        rows["per-array"]["run_s"] = time.perf_counter() - t
+        emit("mesh_broker", **rows["per-array"])
+
+        # 2. the fused exchange, then 3. shard 3 stopped on the same group
+        t = time.perf_counter()
+        mb = MeshBrokers("meshbroker-fused", shape,
+                         BrokerScenario("uniform", seed + 1, shape), devices,
+                         group=True, fused=True)
+        await mb.start()
+        try:
+            rows["fused"] = await group_run(
+                mb, "mesh broker fused", [("uniform", 2)], pubs,
+                fused_ticks=True)
+            rows["fused"]["run_s"] = time.perf_counter() - t
+            emit("mesh_broker", **rows["fused"])
+            t = time.perf_counter()
+            dead = B - 1
+            await mb.stop_shard(dead)
+            alive = np.arange(U) % B != dead
+            rows["survivors"] = await group_run(
+                mb, "mesh broker survivors", [("uniform", 1)],
+                [p for p in pubs if p % B != dead], fused_ticks=True,
+                alive=alive)
+            check(not mb.group._liveness[dead],
+                  "mesh broker survivors: the stopped shard is still live")
+            gone = [uid for uid in range(dead, U, B)
+                    if mb.group.slots.slot_of(mb.sc.keys[uid]) is not None]
+            check(not gone, f"mesh broker survivors: {len(gone)} of the "
+                  "stopped shard's users still hold slots")
+        finally:
+            await mb.shutdown()
+        rows["survivors"]["run_s"] = time.perf_counter() - t
+        emit("mesh_broker", **rows["survivors"])
+
+        # 4. the same brokers without a group, joined by host links
+        t = time.perf_counter()
+        mb = MeshBrokers("meshbroker-host-links", shape,
+                         BrokerScenario("uniform", seed + 1, shape), devices,
+                         group=False)
+        await mb.start()
+        try:
+            since = mb.mark()
+            bursts = [mb.sc.burst(pubs) for _ in range(2)]
+            dk.LAUNCHES = 0
+            busy = await mb.publish("mesh broker host links", bursts, pubs)
+            mb.check_oracle("mesh broker host links", bursts, since)
+            check(dk.LAUNCHES == 0,
+                  "mesh broker host links: the host path launched a kernel")
+            deliveries = sum(len(b.codes) for b in bursts)
+            rows["host-links"] = dict(
+                run="host links, no group", shards=B, users=U,
+                topics=shape["topics"], publishers=P,
+                bursts={"uniform": 2}, frames_per_burst=shape["frames"],
+                deliveries=deliveries, matches_oracle=True,
+                fifo_per_publisher_and_lane=True,
+                delivered_msgs_per_s=deliveries / busy,
+                **percentiles_ms(mb.latency_ns), busy_s=busy,
+                host_links=[b.connections.num_brokers for b in mb.brokers],
+                routed_share=0.0, delivery_matrix_cuda=0)
+        finally:
+            await mb.shutdown()
+        rows["host-links"]["run_s"] = time.perf_counter() - t
+        emit("mesh_broker", **rows["host-links"])
+    finally:
+        Memory.set_duplex_window(prev_window)
+
+    # 5. a small MeshCluster: a marshal and real clients, one per shard
+    rows["cluster"] = await mesh_cluster_run(devices)
+    emit("mesh_broker", **rows["cluster"])
+    return rows
+
+
+async def mesh_cluster_run(devices) -> dict:
+    """A ``MeshCluster`` on ``devices``: a marshal, one authenticated
+    ``Client`` placed on each shard over the Memory transport, no host
+    broker links; a cross-shard broadcast and a cross-shard direct must
+    each arrive exactly once."""
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.testing import MeshCluster
+
+    label = "mesh cluster"
+    t = time.perf_counter()
+    cluster = await MeshCluster(num_shards=len(devices),
+                                devices=devices).start()
+    try:
+        clients = [await cluster.place_client(seed=500 + s, shard=s,
+                                              topics=[0])
+                   for s in range(len(devices))]
+        dk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        await clients[0].send_broadcast_message([0], b"across the mesh")
+        got = [await asyncio.wait_for(c.receive_message(), 30)
+               for c in clients]
+        check(all(isinstance(m, Broadcast)
+                  and bytes(m.message) == b"across the mesh" for m in got),
+              f"{label}: the broadcast did not reach every shard's client")
+        await clients[0].send_direct_message(clients[-1].public_key,
+                                             b"shard 0 to the last")
+        m = await asyncio.wait_for(clients[-1].receive_message(), 30)
+        check(isinstance(m, Direct) and bytes(m.message)
+              == b"shard 0 to the last", f"{label}: the direct went astray")
+        took_ms = (time.perf_counter() - t0) * 1e3
+        pending = [asyncio.create_task(c.receive_message()) for c in clients]
+        await asyncio.sleep(0.3)
+        check(not any(p.done() for p in pending),
+              f"{label}: a frame arrived twice")
+        for p in pending:
+            p.cancel()
+        g = cluster.group
+        links = [b.connections.num_brokers for b in cluster.brokers]
+        check(links == [0] * len(devices), f"{label}: host links {links}")
+        check(not g.disabled, f"{label}: the group disabled itself")
+        check(g.messages_routed == len(devices) + 1,
+              f"{label}: the group routed {g.messages_routed} of "
+              f"{len(devices) + 1} deliveries")
+        check(dk.LAUNCHES > 0, f"{label}: delivery_matrix_cuda never launched")
+        for c in clients:
+            c.close()
+        return dict(run=label, shards=len(devices),
+                    devices=[str(d) for d in g.mesh.devices],
+                    clients=len(clients), deliveries=len(devices) + 1,
+                    exactly_once=True, broadcast_then_direct_ms=took_ms,
+                    steps=g.steps, messages_routed=g.messages_routed,
+                    host_links=links, delivery_matrix_cuda=dk.LAUNCHES,
+                    run_s=time.perf_counter() - t)
+    finally:
+        await cluster.stop()
+
+
+def phase_mesh_broker(devices, shape: dict = MESH_BROKER):
+    """Phase 10. Returns each run's line and the dense kernel's launches
+    over the group runs' traffic; fails unless each group run launched
+    it."""
+    rows = asyncio.run(mesh_broker_runs(devices, shape, 60))
+    return rows, sum(r["delivery_matrix_cuda"] for r in rows.values())
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1812,6 +2326,11 @@ def main() -> int:
     _, cluster_launches = phase_cluster()
     launches["dense"] += cluster_launches["dense"]
     launches["ragged"] += cluster_launches["ragged"]
+
+    # 10. four broker shards serving users through the mesh group; the
+    # group runs' launches join the kernel line's
+    _, mesh_broker_launches = phase_mesh_broker(folded)
+    launches["dense"] += mesh_broker_launches
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's and

@@ -29,6 +29,13 @@ The package imports torch and numpy only: nothing of JAX and nothing of
 ``device="cpu"``; they never fall back to the CPU on their own.
 """
 
-from pushcdn_tpu_torch._device import resolve_device  # noqa: F401
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy: a host-only process (marshal, client, a broker without a
+    # plane) must not pay torch's import
+    if name == "resolve_device":
+        from pushcdn_tpu_torch._device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,10 +7,11 @@ long-lived tasks (heartbeat, sync, whitelist, user listener, broker
 listener) and the process dies if any of them exits (lib.rs:302-318).
 
 A copy of ``pushcdn_tpu.broker.broker`` cut to the single-broker data
-path: admission control, durable topics (retention), the sharded data
-plane and the operator drain (re-homing) are not copied yet, so
-``admission``, ``durable`` and ``shard_runtime`` stay None and
-``GET /drain`` is not registered. The device plane runs on
+path: admission control, the retention rings of the durable topics, the
+sharded data plane and the operator drain (re-homing) are not copied
+yet, so ``admission`` and ``shard_runtime`` stay None, ``durable`` binds
+topic names and serves wildcard subscribes only, and ``GET /drain`` is
+not registered. The device plane runs on
 ``BrokerConfig.device`` (CUDA unless the caller passes ``"cpu"``); on
 the card its pump is one of the supervised tasks, so a device step that
 fails brings the broker down after its frames took the host path.
@@ -26,9 +27,9 @@ import time
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Optional
 
-from pushcdn_tpu_torch._device import DeviceLike
 from pushcdn_tpu_torch.broker import metrics as broker_metrics
 from pushcdn_tpu_torch.broker.connections import Connections
+from pushcdn_tpu_torch.broker.retention import DurableTopics
 from pushcdn_tpu_torch.broker.tasks import heartbeat as heartbeat_task
 from pushcdn_tpu_torch.broker.tasks import listeners as listener_tasks
 from pushcdn_tpu_torch.broker.tasks import sync as sync_task
@@ -44,7 +45,9 @@ from pushcdn_tpu_torch.proto.error import Error, ErrorKind, bail
 from pushcdn_tpu_torch.proto.limiter import Limiter
 from pushcdn_tpu_torch.proto.util import mnemonic
 
-if TYPE_CHECKING:  # import only for annotations (runtime import would cycle)
+if TYPE_CHECKING:  # import only for annotations (runtime import would cycle,
+    # and a broker without a plane must not import torch)
+    from pushcdn_tpu_torch._device import DeviceLike
     from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
 
 logger = logging.getLogger("pushcdn.broker")
@@ -86,7 +89,7 @@ class BrokerConfig:
     # batched steps (broker/device_plane.py); None = host-only
     device_plane: Optional["DevicePlaneConfig"] = None
     # the device plane's device: None = the current CUDA device
-    device: DeviceLike = None
+    device: "DeviceLike" = None
     # 1 GiB default pool (binaries/broker.rs:67-72)
     global_memory_pool_size: int = GIB
     # operational cadences (heartbeat.rs:39,107; sync.rs:142; whitelist.rs)
@@ -133,7 +136,7 @@ class Broker:
         self._metrics_server = None
         self.device_plane = None
         self.shard_runtime = None  # the sharded data plane: not copied
-        self.durable = None  # durable topics: not copied
+        self.durable = None  # DurableTopics, set in new()
         self.seen_dialing: set[str] = set()  # peers we're currently dialing
         # readiness state (ISSUE 5): listeners-bound latch, cached
         # discovery probe (refreshed by the heartbeat task and, past the
@@ -166,6 +169,9 @@ class Broker:
 
         self.limiter = Limiter(global_pool_bytes=c.global_memory_pool_size)
         self.connections = Connections(str(self.identity))
+        # durable topics: the topic namespace and wildcard subscribe
+        # (retention rings not copied)
+        self.durable = DurableTopics.from_env(self)
 
         # The observability endpoint comes up BEFORE the listeners bind:
         # /readyz must be probe-able (and false) during startup, so an

@@ -73,8 +73,9 @@ from pushcdn_tpu_torch.broker.pump_common import (
     RevCache,
     TopicMaskCache,
     effective_users,
+    egress_snapshot_frames,
 )
-from pushcdn_tpu_torch.broker.staging import StageResult
+from pushcdn_tpu_torch.broker.staging import StageResult, frame_item
 from pushcdn_tpu_torch.ops.ragged_delivery import (
     RaggedInterest,
     ragged_pairs,
@@ -334,28 +335,17 @@ class DevicePlane:
                 and not self._step_inflight
                 and all(r.free_slots == r.slots for r in self.rings))
 
-    @staticmethod
-    def _frame_item(message, raw: Bytes):
-        """A decoded message and its wire frame as a ``stage_frames``
-        item; another kind than Broadcast or Direct stages as kind 0,
-        which is INELIGIBLE."""
-        if isinstance(message, Broadcast):
-            return KIND_BROADCAST, raw.data, message.topics
-        if isinstance(message, Direct):
-            return KIND_DIRECT, raw.data, message.recipient
-        return 0, raw.data, None
-
     def try_stage(self, message, raw: Bytes) -> StageResult:
         """Stage one decoded message's WIRE FRAME for device routing.
         INELIGIBLE ⇒ host path; FULL ⇒ slot-credit backpressure, the
         caller retries."""
-        return self.stage_frames([self._frame_item(message, raw)])[0]
+        return self.stage_frames([frame_item(message, raw)])[0]
 
     def stage_batch(self, items) -> List[StageResult]:
         """Stage a whole receive batch of ``(message, raw)`` pairs in one
         pass; returns a ``StageResult`` per item, aligned with ``items``
         (FULL items are the leftovers the caller retries singly)."""
-        return self.stage_frames([self._frame_item(m, r) for m, r in items])
+        return self.stage_frames([frame_item(m, r) for m, r in items])
 
     def stage_frames(self, items) -> List[StageResult]:
         """Stage a batch of ``(kind, payload, target)`` items, where
@@ -565,7 +555,10 @@ class DevicePlane:
                     self._step_inflight = False
                 t2 = time.perf_counter()
                 gate.stepped(loop.time())
-                delivered = sum(self._egress(job) for job in jobs)
+                delivered = sum(
+                    egress_snapshot_frames(self.broker, self.slots, j.users,
+                                           j.frames, j.length, j.bytes_)
+                    for j in jobs)
                 t3 = time.perf_counter()
                 self.messages_routed += delivered
                 self.recent_steps.append(StepTiming(
@@ -589,30 +582,6 @@ class DevicePlane:
                 raise   # on the card: the broker goes down with it
             finally:
                 self._free_quarantined(snap)
-
-    def _egress(self, job: LaneDeliveries) -> int:
-        """Queue one lane's delivered wire frames to the local users'
-        connections, non-blocking and grouped per user, one ``Bytes`` per
-        frame shared by its receivers and released after the walk.
-        Returns the number of frames queued."""
-        from pushcdn_tpu_torch.broker.tasks.senders import (
-            egress_delivery_rows,
-        )
-        cache: dict = {}
-
-        def frame_of(f: int) -> Bytes:
-            raw = cache.get(f)
-            if raw is None:
-                raw = cache[f] = Bytes(
-                    job.bytes_[f, :job.length[f]].tobytes())
-            return raw
-
-        try:
-            return egress_delivery_rows(self.broker, self.slots, job.users,
-                                        job.frames, frame_of)
-        finally:
-            for raw in cache.values():
-                raw.release()
 
     async def _host_fallback(self, lane_batches) -> None:
         """Deliver batches the device failed to route, via the host path.

@@ -8,7 +8,8 @@
   pay for the actual population),
 - the revision-keyed device-state cache (steady state uploads no user
   table),
-- the per-plane topic-list → mask memo.
+- the per-plane topic-list → mask memo,
+- the egress of delivered frames from a step's host snapshot.
 """
 
 from __future__ import annotations
@@ -107,3 +108,28 @@ class TopicMaskCache:
                     self._memo.clear()
                 self._memo[key] = hit
         return hit
+
+
+def egress_snapshot_frames(broker, slots, users, frames, length,
+                           bytes_) -> int:
+    """Queue delivered frames to ``broker``'s users, non-blocking: pair
+    ``i`` sends row ``frames[i]`` of the host snapshot ``bytes_`` (its
+    first ``length[frames[i]]`` bytes) to user slot ``users[i]`` of
+    ``slots``, pairs grouped per user. One ``Bytes`` per frame is shared
+    by its receivers and released after the walk. Returns the number of
+    frames queued."""
+    from pushcdn_tpu_torch.broker.tasks.senders import egress_delivery_rows
+    from pushcdn_tpu_torch.proto.limiter import Bytes
+    cache: dict = {}
+
+    def frame_of(f: int) -> Bytes:
+        raw = cache.get(f)
+        if raw is None:
+            raw = cache[f] = Bytes(bytes_[f, :length[f]].tobytes())
+        return raw
+
+    try:
+        return egress_delivery_rows(broker, slots, users, frames, frame_of)
+    finally:
+        for raw in cache.values():
+            raw.release()

@@ -503,25 +503,20 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
                         broker.connections.unsubscribe_user_from(public_key,
                                                                  pruned)
                     elif isinstance(message, SubscribeFrom):
-                        # no durable topics here: served as the JAX broker
-                        # serves it with retention off — an explicit topic
-                        # is a plain subscribe (nothing to replay), and a
-                        # pattern matches no bound name, so it binds nothing
+                        # a pattern subscribes the bound names it covers
+                        # and keeps watching; an explicit topic is a plain
+                        # subscribe (no retention rings: nothing to replay)
                         adm = broker.admission
                         if adm is not None and \
                                 not adm.allow_subscribe(connection):
                             adm.shed_subscribe(public_key, connection,
                                                egress)
                             continue
-                        if message.pattern:
-                            continue
-                        pruned, bad = topics.prune([message.topic])
-                        if bad:
-                            # unknown topic ⇒ disconnect (Subscribe parity)
+                        durable = broker.durable
+                        if durable is None or not durable.handle_subscribe_from(
+                                public_key, message, connection):
                             alive = False
                             break
-                        broker.connections.subscribe_user_to(public_key,
-                                                             pruned)
                     else:
                         # users may not send auth or sync messages
                         # post-handshake

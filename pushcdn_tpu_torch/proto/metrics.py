@@ -681,27 +681,31 @@ def _refresh_build_info() -> None:
     AFTER the first scrape (a broker warms its device plane up in
     ``start``), and a frozen 'uninitialized' label would defeat the
     point. The stale series drops to 0 and the current one reads 1.
-    Never *initializes* CUDA: a broker whose plane runs on the CPU must
-    not pay a CUDA context inside its /metrics handler — a CPU-only
-    torch reports backend=cpu, a CUDA build reports uninitialized until
-    the process's own work brought CUDA up."""
+    Never *imports* torch nor *initializes* CUDA: a host-only process
+    (marshal, client, a broker without a plane) reports torch=absent and
+    backend=unloaded; a CPU-only torch reports backend=cpu, a CUDA build
+    reports uninitialized until the process's own work brought CUDA
+    up."""
     global _build_info_last
-    import torch
-
     import pushcdn_tpu_torch
-    backend = "cpu"
+    torch_mod = sys.modules.get("torch")
+    torch_v = (getattr(torch_mod, "__version__", "absent")
+               if torch_mod else "absent")
+    backend = "unloaded"
     device_kind = "unknown"
-    if torch.version.cuda is not None:
-        backend = "uninitialized"
+    if torch_mod is not None:
+        backend = "cpu"
         try:
-            # peek, never provoke
-            if torch.cuda.is_initialized():
-                backend = "cuda"
-                device_kind = torch.cuda.get_device_name(
-                    torch.cuda.current_device())
+            if torch_mod.version.cuda is not None:
+                backend = "uninitialized"
+                # peek, never provoke
+                if torch_mod.cuda.is_initialized():
+                    backend = "cuda"
+                    device_kind = torch_mod.cuda.get_device_name(
+                        torch_mod.cuda.current_device())
         except Exception:
             backend = "error"
-    current = (pushcdn_tpu_torch.__version__, torch.__version__, backend,
+    current = (pushcdn_tpu_torch.__version__, str(torch_v), backend,
                device_kind)
     if current == _build_info_last:
         return

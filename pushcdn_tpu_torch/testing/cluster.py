@@ -17,9 +17,8 @@ import asyncio
 import itertools
 import os
 import tempfile
-from typing import Optional, Type
+from typing import TYPE_CHECKING, Optional, Type
 
-from pushcdn_tpu_torch._device import DeviceLike
 from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
 from pushcdn_tpu_torch.broker.tasks.heartbeat import heartbeat_once
 from pushcdn_tpu_torch.client import Client, ClientConfig
@@ -30,6 +29,9 @@ from pushcdn_tpu_torch.proto.discovery.base import BrokerIdentifier
 from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
 from pushcdn_tpu_torch.proto.topic import TopicSpace
 from pushcdn_tpu_torch.proto.transport.memory import Memory
+
+if TYPE_CHECKING:
+    from pushcdn_tpu_torch._device import DeviceLike
 
 _UNIQUE = itertools.count()
 
@@ -70,7 +72,7 @@ class Cluster:
     def __init__(self, num_brokers: int = 1, device_plane=None,
                  scheme: Type[SignatureScheme] = DEFAULT_SCHEME,
                  topics: Optional[TopicSpace] = None,
-                 device: DeviceLike = None):
+                 device: "DeviceLike" = None):
         self.uid = next(_UNIQUE)
         self.num_brokers = num_brokers
         self.device_plane = device_plane

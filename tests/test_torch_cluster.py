@@ -461,3 +461,77 @@ async def test_replay_subscribes_need_the_durable_topics_not_yet_ported(call):
         want = (False, 2, [0], b"after", True)
     assert out["jax"] == want
     assert out["port"] == want
+
+
+TOPIC_NAMES = "consensus.vote=1,consensus.qc=2,bulk.blob=3"
+
+
+async def test_subscribe_pattern_with_bound_names_matches_jax(monkeypatch):
+    """With ``PUSHCDN_TOPIC_NAMES`` bound, ``subscribe_pattern`` subscribes
+    the bound topics the pattern covers on both packages, interest crosses
+    the broker link, and the bound names set the flow classes the ledger
+    counts by: the same per-class fates and the same per-link counts."""
+    from pushcdn_tpu.broker.tasks import cutthrough
+
+    monkeypatch.setenv("PUSHCDN_TOPIC_NAMES", TOPIC_NAMES)
+    # the JAX receive loops take the scalar twin, which the port copies
+    monkeypatch.setattr(cutthrough, "ROUTE_IMPL", "python")
+    out = {}
+    for name in PACKAGES:
+        p = _pkg(name)
+        ledger = importlib.import_module(
+            {"jax": "pushcdn_tpu", "port": "pushcdn_tpu_torch"}[name]
+            + ".proto.ledger")
+        async with asyncio.timeout(SCENARIO_TIMEOUT_S):
+            cluster = await p.cluster(
+                num_brokers=2, topics=p.topic.TopicSpace.range(8)).start()
+            try:
+                alice, bob = await _two_homes(p, cluster, (93, 94), [])
+                home = cluster.brokers[1]     # alice's broker
+                await asyncio.sleep(0.2)
+                ledger.reset_for_tests()
+                await alice.subscribe_pattern("consensus.*")
+                await p.wait_until(lambda: home.connections.user_topics
+                                   .get_values_of_key(alice.public_key))
+                topics = sorted(home.connections.user_topics
+                                .get_values_of_key(alice.public_key))
+                await p.sync.partial_topic_sync(home)
+                await p.wait_until(lambda: len(cluster.brokers[0].connections
+                                               .get_interested_by_topic(
+                                                   [2], False)[1]) == 1)
+                for t in (1, 3, 2):
+                    await bob.send_broadcast_message([t], b"topic %d" % t)
+                await bob.send_direct_message(alice.public_key, b"marker")
+                got = [await _recv(p, alice) for _ in range(3)]
+                assert got == [["broadcast", b"topic 1"],
+                               ["broadcast", b"topic 2"],
+                               ["direct", b"marker"]]
+                await asyncio.sleep(0.2)
+                led = ledger.LEDGER
+                out[name] = dict(
+                    topics=topics, got=got,
+                    fates={"/".join(k): v for k, v in led.fates.items()},
+                    ingress=led.ingress,
+                    link_sent=sorted(led.link_sent.values()),
+                    link_recv=sorted(led.link_recv.values()))
+                alice.close()
+                bob.close()
+            finally:
+                await cluster.stop()
+    assert out["jax"]["topics"] == [1, 2]
+    # the bound names' classes: the two consensus.* broadcasts crossed
+    # the link as consensus, the unheard bulk.blob one dropped as bulk
+    consensus, bulk = 1, 3
+    assert sorted(row[consensus] for row in out["jax"]["link_sent"]) == [0, 2]
+    assert out["jax"]["fates"]["dropped/no_interest"][bulk] == 1
+    assert out["port"] == out["jax"]
+
+
+async def test_retained_topics_need_the_rings_not_yet_ported(monkeypatch):
+    """The port's durable topics hold the name binding and wildcard part
+    only: a broker asked to retain topics refuses to start rather than
+    serve replay subscribes with nothing retained."""
+    monkeypatch.setenv("PUSHCDN_RETAIN_TOPICS", "0")
+    p = _pkg("port")
+    with pytest.raises(p.error.Error, match="retention rings"):
+        await p.cluster(num_brokers=1).start()

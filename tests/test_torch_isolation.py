@@ -102,6 +102,22 @@ async def cluster():
     await c.stop()
 
 asyncio.run(cluster())
+
+from pushcdn_tpu_torch.testing import MeshCluster
+
+async def mesh_cluster():
+    c = await MeshCluster(num_shards=2, device="cpu").start()
+    alice = await c.place_client(seed=2, shard=0, topics=[0])
+    bob = await c.place_client(seed=3, shard=1, topics=[0])
+    await alice.send_broadcast_message([0], b"across the shards")
+    got = await asyncio.wait_for(bob.receive_message(), 5)
+    assert bytes(got.message) == b"across the shards"
+    assert [b.connections.num_brokers for b in c.brokers] == [0, 0]
+    alice.close()
+    bob.close()
+    await c.stop()
+
+asyncio.run(mesh_cluster())
 assert not any(m == "jax" or m.startswith(("jax.", "pushcdn_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", len(names))
@@ -186,3 +202,68 @@ def test_library_path_follows_the_source(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR
     for name in _build.KERNELS:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
+
+
+_HOST_ONLY = r"""
+import sys
+import importlib
+importlib.import_module(sys.argv[1])
+from pushcdn_tpu_torch.proto import metrics
+line = next(row for row in metrics.render_all().splitlines()
+            if row.startswith("cdn_build_info{"))
+assert "torch" not in sys.modules, sorted(
+    m for m in sys.modules if m.startswith("torch"))[:5]
+print(line)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "pushcdn_tpu_torch.marshal", "pushcdn_tpu_torch.client",
+    "pushcdn_tpu_torch.broker.broker", "pushcdn_tpu_torch.bin.marshal",
+    "pushcdn_tpu_torch.bin.client", "pushcdn_tpu_torch.bin.broker"])
+def test_host_only_processes_do_not_import_torch(module):
+    """A marshal, a client or a broker without a device plane never
+    imports torch, as the JAX package's never imports jax; their
+    ``/metrics`` render reports torch as absent and the backend as
+    unloaded."""
+    r = subprocess.run([sys.executable, "-c", _HOST_ONLY, module], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'torch="absent"' in r.stdout and 'backend="unloaded"' in r.stdout
+
+
+_HOST_BROKER = r"""
+import asyncio, os, sys, tempfile
+from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+from pushcdn_tpu_torch.broker.test_harness import TestRun
+from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+from pushcdn_tpu_torch.proto.def_ import testing_run_def
+from pushcdn_tpu_torch.proto.message import Broadcast
+
+async def serve():
+    broker = await Broker.new(BrokerConfig(
+        run_def=testing_run_def(), keypair=DEFAULT_SCHEME.generate_keypair(seed=1),
+        discovery_endpoint=os.path.join(tempfile.mkdtemp(), "d.sqlite"),
+        public_advertise_endpoint="host-pub", public_bind_endpoint="host-pub",
+        private_advertise_endpoint="host-priv", private_bind_endpoint="host-priv"))
+    await broker.start()
+    run = TestRun(broker=broker)
+    await run.inject_users([[0], [0]])
+    await run.send_message_as(run.user(0), Broadcast([0], b"hi"))
+    for u in run.connected_users:
+        await run.assert_received(u, Broadcast([0], b"hi"), timeout=5)
+    await run.shutdown()
+
+asyncio.run(serve())
+assert "torch" not in sys.modules
+print("ok")
+"""
+
+
+def test_host_broker_serves_without_torch():
+    """A broker without a plane starts, serves users and stops without
+    ever importing torch."""
+    r = subprocess.run([sys.executable, "-c", _HOST_BROKER], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "ok"
