@@ -97,7 +97,33 @@ Phases, each printing one JSON line:
    must equal the scalar oracle's (as a multiset, and per publisher in
    send order on each path: size lane, broadcast or direct), the group
    must route every one without disabling itself and launch the dense
-   kernel; one ``mesh_broker`` line per run.
+   kernel; one ``mesh_broker`` line per run;
+11. the multi-host group — a global mesh of 8 shards in 2 processes, each
+   folding its 4 shards onto the card, the exchange over a gloo process
+   group (the phase names its transport: CUDA tensors, or rows staged
+   through host memory), at phase 10's width with 256 x 2048 B base-lane
+   slots a shard (8 shards carry a 2048-frame burst in one tick) and 512
+   user slots a shard. Runs: (1) two worker processes (``python -m
+   pushcdn_tpu_torch.testing.lockstep_worker``) step a socket-free
+   ``MultiHostBrokerGroup`` in lockstep for 8 ticks of phase 6's traffic
+   (4032 users, no churn), uniform and zipf, fused and per-array; each
+   tick's deliveries of both processes must equal phase 6's oracle and
+   the one-process ``MeshGroup`` of 8 shards on the card, pair for pair
+   and frame for frame, with 8 dense launches a tick per process; (2) two
+   worker processes (``testing.burst_worker``) each run a group with a
+   ``Broker`` on each local shard and 2048 users injected over the Memory
+   transport (512 a broker); 32 publishers in each send 3 uniform bursts
+   of 2048 frames in phase 8's mix, every user moves to zipf topics, 1
+   zipf burst, directs to users of the other process through the
+   discovery directory; every delivery against the oracle, zero host
+   broker links, 8 launches a step and one collective a tick, the idle
+   lockstep tick measured; beside it the same users and bursts through
+   one process's group of 8 shards on the card (reported, not claimed);
+   (3) a marshal and two ``broker --mesh-shards 2 --multihost-*
+   --device cuda:0`` processes, a TCP+TLS client on each: a broadcast
+   crosses, a direct crosses back, no broker link, both exit 0 on
+   SIGTERM with their launches on their exit lines. Then the dense
+   kernel's time at this shape. One ``multihost`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -157,6 +183,11 @@ CLUSTER = dict(SLICE, users=1024, publishers=64, frame_bytes=2048,
 # the mesh-broker phase: the mesh phase's shards, lanes and users in four
 # brokers, 16 of each shard's users publishing
 MESH_BROKER = dict(MESH, publishers=64)
+# the multi-host phase: the mesh phase's users, topics and lanes over 8
+# shards in 2 processes (4 folded onto the card in each); 256 base-lane
+# slots a shard carry a 2048-frame burst in one tick; 64 publishers, 32
+# in each process
+MULTIHOST = dict(MESH, shards=8, processes=2, ring_slots=256, publishers=64)
 # every payload ends in (publisher, seq, send time in perf_counter ns)
 TAIL = struct.Struct("<IIq")
 BARRIER = 0xFFFFFFFF   # the publisher of a resubscription barrier
@@ -997,11 +1028,12 @@ class BrokerScenario:
         return sorted({int(t) for t in self.rng.choice(
             self.shape["topics"], size=k, p=self.p)})
 
-    def burst(self, pubs=None, alive=None) -> Burst:
+    def burst(self, pubs=None, alive=None, direct_pool=None) -> Burst:
         """One burst, frame i from publisher ``pubs[i % len(pubs)]`` (by
         default users 0..publishers-1): broadcasts on one topic (two for
-        a tenth of them), directs to any user, ``wide_frames`` frames for
-        the wide lane. ``frames[j]`` and ``messages[j]`` are publisher
+        a tenth of them), directs to any user (or to one of
+        ``direct_pool(publisher)``), ``wide_frames`` frames for the wide
+        lane. ``frames[j]`` and ``messages[j]`` are publisher
         ``pubs[j]``'s. Only users marked in ``alive`` (default: all)
         receive."""
         from pushcdn_tpu_torch.proto.message import (
@@ -1027,7 +1059,11 @@ class BrokerScenario:
             off = int(rng.integers(0, len(self.filler) - size))
             body = self.filler[off:off + size] + TAIL.pack(pub, seq, 0)
             if rng.random() < s["direct_share"]:
-                uid = int(rng.integers(U))
+                if direct_pool is None:
+                    uid = int(rng.integers(U))
+                else:
+                    pool = direct_pool(pub)
+                    uid = int(pool[int(rng.integers(len(pool)))])
                 target = self.keys[uid]
                 frame = serialize(Direct(target, body))
                 uids = np.asarray([uid], np.int64)
@@ -1307,13 +1343,15 @@ class Children:
         self.procs = {}
         self.logs = {}
 
-    def spawn(self, name: str, *args: str, env=None):
+    def spawn(self, name: str, *args: str, env=None, binary=None):
+        """Start ``pushcdn_tpu_torch.bin.<binary>`` (default: ``name``)
+        as the child ``name``."""
         from pushcdn_tpu_torch.bin.common import spawn_binary
         log = os.path.join(HERE, ".build", f"{self.tag}-{name}.log")
         if os.path.exists(log):
             os.remove(log)
         self.logs[name] = log
-        self.procs[name] = spawn_binary(name, *args, env_extra=env,
+        self.procs[name] = spawn_binary(binary or name, *args, env_extra=env,
                                         log_path=log)
 
     def check_alive(self, label: str) -> None:
@@ -1797,6 +1835,10 @@ class MeshBrokers:
         ``Unsubscribe``/``Subscribe`` would be."""
         old = self.sc.topics
         self.sc.subscribe(popularity)
+        self.apply_topics(old)
+
+    def apply_topics(self, old) -> None:
+        """Move every user from its topics ``old`` to the scenario's."""
         B = self.shape["shards"]
         for uid, (was, now) in enumerate(zip(old, self.sc.topics)):
             conns = self.brokers[uid % B].connections
@@ -1851,26 +1893,9 @@ class MeshBrokers:
         broadcasts and directs apart, since a group step's egress walks
         its broadcast lanes before its direct lanes, as the JAX group's
         does."""
-        want = np.sort(np.concatenate([b.codes for b in bursts]))
-        new = [c[n:] for c, n in zip(self.got, since)]
-        have = np.sort(np.concatenate(
-            [np.empty(0, np.int64)]
-            + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
-               for uid, c in enumerate(new)]))
-        check(have.shape == want.shape and (have == want).all(),
-              f"{label}: the {len(have)} deliveries differ from the "
-              f"oracle's {len(want)}")
-        check(np.array_equal(self.got_bytes - self.bytes_since,
-                             sum(b.nbytes for b in bursts)),
-              f"{label}: received bytes differ from the oracle's")
-        for uid, (c, n) in enumerate(zip(self.got, since)):
-            c = np.asarray(c[n:], np.int64)
-            path = (c >> 32) * 2 + np.asarray(self.got_direct[uid][n:], bool)
-            order = np.argsort(path, kind="stable")
-            hi, seq = path[order], (c & 0xFFFFFFFF)[order]
-            check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
-                  f"{label}: user {uid} got a publisher's frames out of "
-                  "order")
+        check_deliveries(label, [c[n:] for c, n in zip(self.got, since)],
+                         [d[n:] for d, n in zip(self.got_direct, since)],
+                         self.got_bytes - self.bytes_since, bursts)
 
     def mark(self) -> list:
         """Per-user delivery counts so far, the start of a check."""
@@ -1891,6 +1916,29 @@ class MeshBrokers:
         check(all(isinstance(e, asyncio.CancelledError) for e in ends),
               f"{self.name}: a receiver failed: "
               f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
+
+
+def check_deliveries(label: str, got, got_direct, got_bytes, bursts) -> None:
+    """Per user ``uid``: its delivery codes ``got[uid]``, whether each was
+    a direct, and its bytes, against the bursts' oracle, and publisher
+    order per path (size lane, broadcast or direct)."""
+    want = np.sort(np.concatenate([b.codes for b in bursts]))
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries differ from the oracle's "
+          f"{len(want)}")
+    check(np.array_equal(got_bytes, sum(b.nbytes for b in bursts)),
+          f"{label}: received bytes differ from the oracle's")
+    for uid, c in enumerate(got):
+        c = np.asarray(c, np.int64)
+        path = (c >> 32) * 2 + np.asarray(got_direct[uid], bool)
+        order = np.argsort(path, kind="stable")
+        hi, seq = path[order], (c & 0xFFFFFFFF)[order]
+        check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
+              f"{label}: user {uid} got a publisher's frames out of order")
 
 
 class CollectiveCounter:
@@ -2142,6 +2190,565 @@ def phase_mesh_broker(devices, shape: dict = MESH_BROKER):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the multi-host group, two processes stepping one global mesh
+# ---------------------------------------------------------------------------
+
+
+def spawn_pair(module: str, tag: str, args, device) -> tuple:
+    """Start a worker pair of ``module`` on a fresh ``file://`` rendezvous
+    under ``.build/<tag>``; returns the procs and the directory (each
+    rank logs to ``rank<R>.log`` there)."""
+    import shutil
+    from pushcdn_tpu_torch.testing.two_host import spawn_worker_pair
+    d = os.path.join(HERE, ".build", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    procs = spawn_worker_pair(
+        module, f"file://{d}/rendezvous",
+        [*args(d), "--device", str(device)], log_dir=d)
+    return procs, d
+
+
+def wait_pair(procs, d: str, label: str, timeout: float) -> None:
+    """Both workers must exit 0 within ``timeout``; any left running is
+    killed."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        check(p.returncode == 0, f"{label}: rank {rank} exited with "
+              f"{p.returncode}:\n{log_tail(os.path.join(d, f'rank{rank}.log'))}")
+
+
+def lockstep_scripts(shape: dict) -> list:
+    """Phase 11's socket-free runs: per (popularity, schedule) the users
+    (phase 6's, no churn) and ticks of a MeshScenario over the global
+    mesh, with the scenario to check them by."""
+    import pickle
+    cfg = dict(num_user_slots=shape["users"], ring_slots=shape["ring_slots"],
+               direct_bucket_slots=shape["direct_bucket_slots"],
+               frame_bytes=shape["frame_bytes"],
+               extra_lanes=(shape["extra_lane"],),
+               topic_words=shape["topic_words"])
+    runs = []
+    for seed, (popularity, fused) in enumerate(
+            (p, f) for p in ("uniform", "zipf") for f in (True, False)):
+        sc = MeshScenario(popularity, 110 + seed, shape)
+        for i in range(shape["initial_users"]):
+            sc.add_at((), i % shape["shards"])
+        users = [(k, sc.shard[k], sc.users[k]) for k in sorted(
+            sc.users, key=sc.user_id)]
+        ticks = [sc.mesh_traffic() for _ in range(shape["ticks"])]
+        script = dict(shards=shape["shards"],
+                      config=dict(cfg, fused_collective=fused), users=users,
+                      ticks=ticks)
+        runs.append((popularity, fused, sc, script,
+                     pickle.dumps(script)))
+    return runs
+
+
+def multihost_lockstep(device, shape: dict) -> tuple:
+    """Phase 11 run 1: two processes step the global mesh of
+    ``shape["shards"]`` shards (half of them each, folded onto
+    ``device``) in lockstep, socket-free, for each (popularity,
+    schedule); each tick's deliveries of both processes against the
+    oracle and against the one-process MeshGroup of every shard folded on
+    ``device``. Returns the runs' lines, the workers' dense launches and
+    the captured launches of the reference's last tick."""
+    import pickle
+    import zlib
+    from pushcdn_tpu_torch.broker.mesh_group import MeshGroup, MeshGroupConfig
+    from pushcdn_tpu_torch.parallel.mesh import make_broker_mesh
+    B = shape["shards"]
+    local = B // shape["processes"]
+    runs = lockstep_scripts(shape)
+    t0 = time.perf_counter()
+
+    def args(d):
+        paths = []
+        for i, run in enumerate(runs):
+            path = os.path.join(d, f"script{i}.pkl")
+            with open(path, "wb") as f:
+                f.write(run[-1])
+            paths.append(path)
+        return ["group", d, *paths]
+    procs, d = spawn_pair("pushcdn_tpu_torch.testing.lockstep_worker",
+                          f"multihost-lockstep-{os.getpid()}", args, device)
+    wait_pair(procs, d, "multihost lockstep", 600)
+    workers_s = time.perf_counter() - t0
+    lines, launches, captured = [], 0, None
+    for i, (popularity, fused, sc, script, _) in enumerate(runs):
+        schedule = "fused" if fused else "per-array"
+        label = f"multihost lockstep {popularity}/{schedule}"
+        outs = []
+        for rank in range(shape["processes"]):
+            with open(os.path.join(d, f"rank{rank}-{i}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+        ref = MeshGroup(make_broker_mesh(B, devices=[device] * B),
+                        MeshGroupConfig(**script["config"]))
+        # full shapes, as the lockstep group steps: the same pairs, and
+        # the kernel's captured inputs at the main path's shape
+        ref.lockstep = True
+        for key, shard, topics in script["users"]:
+            ref.claim_user(shard, key, topics)
+        lanes = ref.config.lane_shapes()
+        for tick, per_shard in enumerate(script["ticks"]):
+            for s in range(B):
+                ref.stage_batch(s, per_shard[s])
+            if tick == len(script["ticks"]) - 1 and i == 0:
+                cap = Capture()
+                with cap:
+                    want_ref = ref.step()
+                captured = cap.calls["dense"]
+            else:
+                want_ref = ref.step()
+            ref_codes = {}
+            for r in want_ref:
+                uids = np.asarray([sc.user_id(ref.slots.key_of(int(u)))
+                                   for u in r.users], np.int64)
+                ref_codes[(r.shard, r.lane, r.direct)] = (
+                    sc.code(r.shard, r.lane, int(r.direct), uids,
+                            r.frames.astype(np.int64)),
+                    zlib.crc32(np.ascontiguousarray(r.bytes_)))
+            want_codes, want_len = sc.mesh_oracle(per_shard, lanes)
+            parts, got_ref = [], {}
+            for out in outs:
+                for shard, lane, direct, keys, frames, length, crc in \
+                        out["ticks"][tick]:
+                    uids = np.asarray([sc.user_id(k) for k in keys],
+                                      np.int64)
+                    code = sc.code(shard, lane, int(direct), uids,
+                                   frames.astype(np.int64))
+                    key = (lane, True, shard) if direct else (lane, False)
+                    check(np.array_equal(length, want_len[key]),
+                          f"{label} tick {tick}: frame lengths differ")
+                    parts.append(code)
+                    got_ref[(shard, lane, direct)] = (code, crc)
+            got_codes = np.sort(np.concatenate(parts)) if parts \
+                else np.empty(0, np.int64)
+            check(got_codes.shape == want_codes.shape
+                  and (got_codes == want_codes).all(),
+                  f"{label} tick {tick}: {len(got_codes)} pairs, oracle "
+                  f"{len(want_codes)}")
+            check(got_ref.keys() == ref_codes.keys() and all(
+                np.array_equal(got_ref[k][0], ref_codes[k][0])
+                and got_ref[k][1] == ref_codes[k][1] for k in ref_codes),
+                f"{label} tick {tick}: the two processes' pairs or frames "
+                "differ from the one-process group's")
+        rows = np.asarray([r for out in outs for r in out["rows"]], float)
+        per_tick = [int(x) for x in rows[:, 7]]
+        check(set(per_tick) == {2 * local}, f"{label}: dense launches a "
+              f"tick per process {sorted(set(per_tick))}, want {2 * local}")
+        collectives = sorted({int(x) for x in rows[:, 4]})
+        check(not fused or collectives == [1],
+              f"{label}: a fused tick counted {collectives} collectives")
+        launches += int(rows[:, 7].sum())
+        med = lambda col: float(np.median(rows[:, col]) * 1e3)  # noqa: E731
+        lines.append(dict(
+            run=label, processes=shape["processes"], shards=B,
+            local_shards=local, devices=[str(device)] * local,
+            transport=outs[0]["transport"], users=len(script["users"]),
+            topics=shape["topics"], frames_per_tick=shape["frames"],
+            ticks=len(script["ticks"]), matches_oracle=True,
+            matches_one_process_group=True,
+            pairs_per_tick=[sum(len(t[3]) for out in outs
+                                for t in out["ticks"][k])
+                            for k in range(len(script["ticks"]))],
+            collectives_per_tick=collectives,
+            dense_launches_per_tick_per_process=2 * local,
+            stage_ms_median=med(0), snapshot_upload_ms_median=med(1),
+            mesh_step_readback_ms_median=med(2),
+            pair_extract_ms_median=med(3),
+            exchange_host_staging_ms_median=med(5),
+            exchange_collective_ms_median=med(6),
+            delivery_matrix_cuda=int(rows[:, 7].sum())))
+    return lines, launches, captured, workers_s
+
+
+def multihost_plan(shape: dict, seed: int, db: str):
+    """Phase 11 run 2's plan: users ``uid`` on shard ``uid % shards``
+    (half the shards in each process), publishers 0..publishers-1, three
+    uniform bursts, every user moved to zipf topics, one zipf burst;
+    directs go to users of the other process. Returns the plan, the
+    bursts, the scenario as it stood before the bursts and the uniform
+    topics the zipf move starts from."""
+    import copy
+    B, U = shape["shards"], shape["users"]
+    local = B // shape["processes"]
+    sc = BrokerScenario("uniform", seed, shape)
+    start = copy.deepcopy(sc)
+    proc = (np.arange(U) % B) // local
+    pools = [np.flatnonzero(proc != r) for r in range(shape["processes"])]
+    pubs = list(range(shape["publishers"]))
+    topics = {"uniform": sc.topics}
+    plan_bursts, bursts = [], []
+    for popularity, n in (("uniform", 3), ("zipf", 1)):
+        if popularity != sc.popularity:
+            sc.subscribe(popularity)
+            topics[popularity] = sc.topics
+        for _ in range(n):
+            b = sc.burst(pubs, direct_pool=lambda p: pools[proc[p]])
+            bursts.append((popularity, b))
+            plan_bursts.append(dict(
+                popularity=popularity,
+                frames={pubs[j]: fr for j, fr in enumerate(b.frames)},
+                expect=np.bincount(b.codes >> 40, minlength=U)))
+    plan = dict(
+        config=dict(num_user_slots=U, ring_slots=shape["ring_slots"],
+                    direct_bucket_slots=shape["direct_bucket_slots"],
+                    frame_bytes=shape["frame_bytes"],
+                    extra_lanes=(shape["extra_lane"],),
+                    topic_words=shape["topic_words"]),
+        shards=B, num_topics=shape["topics"], db=db, keys=sc.keys,
+        topics=topics, first="uniform", frame_bytes=shape["frame_bytes"],
+        bursts=plan_bursts)
+    return plan, bursts, start, pubs
+
+
+def multihost_check(label: str, outs, bursts, shape: dict) -> None:
+    """Every user's frames in the two processes against the bursts'
+    oracle (``check_deliveries``)."""
+    U = shape["users"]
+    got = [None] * U
+    got_direct = [None] * U
+    got_bytes = np.zeros(U, np.int64)
+    for out in outs:
+        for uid, codes in out["got"].items():
+            got[uid] = codes
+            got_direct[uid] = out["got_direct"][uid]
+            got_bytes[uid] = out["got_bytes"][uid]
+    check(all(c is not None for c in got), f"{label}: users missing")
+    check_deliveries(label, got, got_direct, got_bytes,
+                     [b for _, b in bursts])
+
+
+def step_medians(steps, exchange) -> dict:
+    """Medians in ms over pump steps (StepTiming tuples) and their
+    exchange parts (host staging, collective)."""
+    r = np.asarray(steps, np.float64).reshape(-1, 6)
+    x = np.asarray(exchange, np.float64).reshape(-1, 2)
+    med = (lambda a, col: float(np.median(a[:, col]) * 1e3)
+           if len(a) else None)
+    return dict(snapshot_ms_median=med(r, 0), device_step_ms_median=med(r, 1),
+                exchange_host_staging_ms_median=med(x, 0),
+                exchange_collective_ms_median=med(x, 1),
+                pair_extract_ms_median=med(r, 2),
+                egress_ms_median=med(r, 3))
+
+
+def multihost_brokers(device, shape: dict, seed: int) -> tuple:
+    """Phase 11 run 2: in each of two processes a MultiHostBrokerGroup
+    with a Broker on each local shard and its users injected over the
+    Memory transport; the plan's bursts, every delivery against the
+    oracle. Returns the run's line, the plan's pieces for the
+    one-process comparison and the workers' dense launches."""
+    import pickle
+    label = "multihost brokers"
+    B = shape["shards"]
+    local = B // shape["processes"]
+    tag = f"multihost-brokers-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    plan, bursts, start, pubs = multihost_plan(shape, seed, db)
+    t0 = time.perf_counter()
+
+    def args(d):
+        path = os.path.join(d, "plan.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(plan, f)
+        return [path, d]
+    procs, d = spawn_pair("pushcdn_tpu_torch.testing.burst_worker", tag,
+                          args, device)
+    wait_pair(procs, d, label, 600)
+    run_s = time.perf_counter() - t0
+    outs = []
+    for rank in range(shape["processes"]):
+        with open(os.path.join(d, f"rank{rank}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    multihost_check(label, outs, bursts, shape)
+    deliveries = sum(len(b.codes) for _, b in bursts)
+    routed = sum(o["busy"]["routed"] for o in outs)
+    check(routed == deliveries, f"{label}: the groups routed {routed} of "
+          f"{deliveries} deliveries")
+    check(not any(o["disabled"] for o in outs),
+          f"{label}: a group disabled itself")
+    links = [n for o in outs for n in o["host_links"]]
+    check(links == [0] * B, f"{label}: host broker links {links}")
+    for o in outs:
+        b = o["busy"]
+        check(b["launches"] > 0 and b["launches"] == 2 * local * b["steps"],
+              f"{label}: rank {o['rank']} launched delivery_matrix_cuda "
+              f"{b['launches']} times in {b['steps']} steps")
+        check(set(b["collectives"]) == {1}, f"{label}: a fused tick counted "
+              f"{sorted(set(b['collectives']))} collectives")
+    lat = np.concatenate([o["latency_ns"] for o in outs])
+    busy_s, by_pop = 0.0, {}
+    for i, (popularity, b) in enumerate(bursts):
+        span = (max(o["bursts"][i]["last_ns"] for o in outs)
+                - min(o["bursts"][i]["start_ns"] for o in outs)) / 1e9
+        busy_s += span
+        pop = by_pop.setdefault(popularity, dict(deliveries=0, busy_s=0.0,
+                                                 lat=[]))
+        pop["deliveries"] += len(b.codes)
+        pop["busy_s"] += span
+        pop["lat"] += [o["latency_ns"][o["bursts"][i]["latency_from"]:
+                                       o["bursts"][i]["latency_to"]]
+                       for o in outs]
+    busy_steps = [s for o in outs for s in o["busy"]["recent_steps"]
+                  if s[4] > 0]
+    busy_x = [x for o in outs
+              for s, x in zip(o["busy"]["recent_steps"], o["busy"]["exchange"])
+              if s[4] > 0]
+    idle_steps = [s for o in outs for s in o["idle"]["recent_steps"]]
+    idle_x = [x for o in outs for x in o["idle"]["exchange"]]
+    line = dict(
+        run=label, processes=shape["processes"], shards=B,
+        local_shards=local, devices=[str(device)] * local,
+        transport=outs[0]["transport"], users=shape["users"],
+        users_per_broker=shape["users"] // B, topics=shape["topics"],
+        publishers=len(pubs), bursts={"uniform": 3, "zipf": 1},
+        frames_per_burst=shape["frames"], deliveries=deliveries,
+        matches_oracle=True, fifo_per_publisher_and_lane=True,
+        delivered_msgs_per_s=deliveries / busy_s,
+        by_popularity={p: dict(delivered_msgs_per_s=v["deliveries"]
+                               / v["busy_s"],
+                               **percentiles_ms(np.concatenate(v["lat"])))
+                       for p, v in by_pop.items()},
+        **percentiles_ms(lat), busy_s=busy_s,
+        steps_per_process=[o["busy"]["steps"] for o in outs],
+        busy_steps=len(busy_steps),
+        busy_step=step_medians(busy_steps, busy_x),
+        launches_per_step_per_process=2 * local,
+        collectives_per_tick=[1],
+        idle_tick_ms=[o["idle"]["seconds"] / max(o["idle"]["steps"], 1) * 1e3
+                      for o in outs],
+        idle_step=step_medians(idle_steps, idle_x),
+        idle_barrier_ms_median=float(np.median(
+            [b for o in outs for b in o["idle"]["barrier"]]) * 1e3),
+        busy_barrier_ms_median=float(np.median(
+            [b for o in outs for b in o["busy"]["barrier"]]) * 1e3),
+        batch_window_ms=outs[0]["batch_window_s"] * 1e3,
+        routed_share=routed / deliveries,
+        warmup_launches=[o["warm_launches"] for o in outs],
+        delivery_matrix_cuda=sum(o["busy"]["launches"] for o in outs),
+        host_links=links, run_s=run_s)
+    return line, (bursts, start, pubs, plan), line["delivery_matrix_cuda"]
+
+
+async def one_process_comparison(device, shape: dict, pieces) -> dict:
+    """The same users and bursts through one process's MeshBrokerGroup on
+    every shard folded onto ``device`` (phase 10's harness at phase 11's
+    shape, fused exchange); reported beside run 2, never claimed."""
+    from pushcdn_tpu_torch.proto.transport.memory import Memory
+    bursts, start, pubs, plan = pieces
+    label = "multihost comparison: one process"
+    B = shape["shards"]
+    prev_window = Memory.set_duplex_window(256 * 1024)
+    t = time.perf_counter()
+    mb = MeshBrokers("multihost-one-process", shape, start, [device] * B,
+                     group=True, fused=True)
+    try:
+        await mb.start()
+        since = mb.mark()
+        busy, by_pop = 0.0, {}
+        for popularity, b in bursts:
+            if popularity != mb.sc.popularity:
+                old = mb.sc.topics
+                mb.sc.popularity = popularity
+                mb.sc.topics = plan["topics"][popularity]
+                mb.apply_topics(old)
+            lat = len(mb.latency_ns)
+            span = await mb.publish(label, [b], pubs)
+            busy += span
+            pop = by_pop.setdefault(popularity, dict(deliveries=0,
+                                                     busy_s=0.0, lat=[]))
+            pop["deliveries"] += len(b.codes)
+            pop["busy_s"] += span
+            pop["lat"] += mb.latency_ns[lat:]
+        mb.check_oracle(label, [b for _, b in bursts], since)
+        deliveries = sum(len(b.codes) for _, b in bursts)
+        check(mb.group.messages_routed == deliveries and not mb.group.disabled,
+              f"{label}: the group routed {mb.group.messages_routed} of "
+              f"{deliveries} deliveries")
+        return dict(run=label, shards=B, devices=[str(device)] * B,
+                    deliveries=deliveries, matches_oracle=True,
+                    delivered_msgs_per_s=deliveries / busy,
+                    by_popularity={
+                        p: dict(delivered_msgs_per_s=v["deliveries"]
+                                / v["busy_s"], **percentiles_ms(v["lat"]))
+                        for p, v in by_pop.items()},
+                    **percentiles_ms(mb.latency_ns), busy_s=busy,
+                    run_s=time.perf_counter() - t)
+    finally:
+        await mb.shutdown()
+        Memory.set_duplex_window(prev_window)
+
+
+async def multihost_binaries(device) -> dict:
+    """Phase 11 run 3: a marshal and two ``broker --mesh-shards 2
+    --multihost-* --device <device>`` processes, one shard each, a TCP+TLS
+    client on each; a broadcast crosses from one broker to the other and
+    a direct crosses back, no broker link forms, and both brokers exit 0
+    on SIGTERM with their exit lines."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import TcpTls
+
+    label = "multihost binaries"
+    tag = f"multihost-bin-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    ports = free_ports(8)
+    coordinator, marshal = ports[:2]
+    kids = Children(tag)
+    clients = []
+    t_run = time.perf_counter()
+    try:
+        kids.spawn("marshal", "--discovery-endpoint", db,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--user-transport", "tcp+tls")
+        metrics = {}
+        for rank in (0, 1):
+            pub, priv, metrics[rank] = ports[2 + 3 * rank:5 + 3 * rank]
+            kids.spawn(f"broker{rank}",
+                       "--discovery-endpoint", db,
+                       "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                       "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                       "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                       "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                       "--metrics-bind-endpoint", f"127.0.0.1:{metrics[rank]}",
+                       "--user-transport", "tcp+tls",
+                       "--heartbeat-interval", "0.2", "--mesh-shards", "2",
+                       "--multihost-coordinator", f"127.0.0.1:{coordinator}",
+                       "--multihost-process-id", str(rank),
+                       "--multihost-num-processes", "2",
+                       "--device", str(device), "--device-ring-slots", "64",
+                       binary="broker")
+        serving = [await kids.wait_for_line(f"broker{r}", "broker serving",
+                                            label, timeout=180)
+                   for r in (0, 1)]
+        startup_s = time.perf_counter() - t_run
+
+        async def users():
+            out = []
+            for r in (0, 1):
+                got = await asyncio.to_thread(http_get, metrics[r], "/metrics")
+                out.append(None if got is None
+                           else metric(got[1], "cdn_num_users_connected"))
+            return out
+
+        async with asyncio.timeout(120):
+            for i, seed in enumerate((8101, 8102)):
+                c = Client(ClientConfig(
+                    marshal_endpoint=f"127.0.0.1:{marshal}",
+                    keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+                    protocol=TcpTls, subscribed_topics={0}))
+                clients.append(c)
+                await c.ensure_initialized()
+                while sorted(await users()) != ([0.0, 1.0] if i == 0
+                                                else [1.0, 1.0]):
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.05)
+                await asyncio.sleep(1.0)   # heartbeats carry the load
+        alice, bob = clients
+        t0 = time.perf_counter()
+        await alice.send_broadcast_message([0], b"across processes")
+        for c in clients:
+            m = await asyncio.wait_for(c.receive_message(), 30)
+            check(isinstance(m, Broadcast)
+                  and bytes(m.message) == b"across processes",
+                  f"{label}: the broadcast went astray")
+        broadcast_ms = (time.perf_counter() - t0) * 1e3
+        directory = await Embedded.new(db)
+        async with asyncio.timeout(60):
+            while len(await directory.get_user_slots()) < 2:
+                await asyncio.sleep(0.05)
+        await directory.close()
+        await asyncio.sleep(1.5)   # the brokers' mirrors refresh
+        t0 = time.perf_counter()
+        await bob.send_direct_message(alice.public_key, b"and back")
+        m = await asyncio.wait_for(alice.receive_message(), 30)
+        check(isinstance(m, Direct) and bytes(m.message) == b"and back",
+              f"{label}: the direct went astray")
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        links = []
+        for r in (0, 1):
+            got = await asyncio.to_thread(http_get, metrics[r], "/metrics")
+            links.append(metric(got[1], "cdn_num_brokers_connected"))
+        check(links == [0.0, 0.0], f"{label}: broker links {links}")
+        for c in clients:
+            c.close()
+        kids.check_alive(label)
+        kids.terminate(label)
+        done = [log_fields(kids.logs[f"broker{r}"], "device plane exit")
+                for r in (0, 1)]
+        check(all(x is not None for x in done),
+              f"{label}: a broker wrote no exit line")
+        launches = [x["launches"]["delivery_matrix_cuda"]
+                    - s["launches"]["delivery_matrix_cuda"]
+                    for x, s in zip(done, serving)]
+        check(all(n > 0 for n in launches),
+              f"{label}: a broker launched delivery_matrix_cuda {launches} "
+              "times after its warm-up")
+        return dict(run=label, processes=2, shards=2,
+                    exchange=serving[0]["exchange"],
+                    devices=serving[0]["devices"], startup_s=startup_s,
+                    broadcast_ms=broadcast_ms, direct_ms=direct_ms,
+                    host_links=links, exit_codes=[0, 0, 0],
+                    steps=[x["steps"] for x in done],
+                    messages_routed=[x["messages_routed"] for x in done],
+                    delivery_matrix_cuda=launches,
+                    warmup_launches=[s["launches"]["delivery_matrix_cuda"]
+                                     for s in serving],
+                    run_s=time.perf_counter() - t_run)
+    finally:
+        for c in clients:
+            c.close()
+        kids.kill()
+
+
+def phase_multihost(device, shape: dict = MULTIHOST) -> tuple:
+    """Phase 11. Returns the lines, the dense launches of the workers'
+    main path (the lockstep runs', the broker runs' and the binaries'
+    after their warm-ups) and the reference's captured launches at the
+    phase's shape."""
+    lines = {}
+    lock_lines, lock_launches, captured, workers_s = multihost_lockstep(
+        device, shape)
+    for line in lock_lines:
+        emit("multihost", workers_s=workers_s, **line)
+    lines["lockstep"] = lock_lines
+    broker_line, pieces, broker_launches = multihost_brokers(
+        device, shape, 111)
+    emit("multihost", **broker_line)
+    lines["brokers"] = broker_line
+    cmp_line = asyncio.run(one_process_comparison(device, shape, pieces))
+    emit("multihost", **cmp_line)
+    lines["comparison"] = cmp_line
+    bin_line = asyncio.run(multihost_binaries(device))
+    emit("multihost", **bin_line)
+    lines["binaries"] = bin_line
+    launches = (lock_launches + broker_launches
+                + sum(bin_line["delivery_matrix_cuda"]))
+    return lines, launches, captured
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2332,9 +2939,29 @@ def main() -> int:
     _, mesh_broker_launches = phase_mesh_broker(folded)
     launches["dense"] += mesh_broker_launches
 
+    # 11. the multi-host group: two processes step one global mesh; the
+    # worker processes' launches on its main path join the kernel line's
+    _, multihost_launches, mh_args = phase_multihost(device)
+    launches["dense"] += multihost_launches
+    # the dense kernel at the multi-host shape: a base-lane launch of the
+    # last tick (one shard's lane over every shard's gathered frames), as
+    # the one-process reference captured it on the same inputs
+    args = max(mh_args, key=lambda a: a[2].shape[0])
+    U, N = args[0].shape[0], args[2].shape[0]
+    emit("time", kernel="delivery_matrix_cuda", shape="multihost",
+         popularity="uniform", shards=MULTIHOST["shards"],
+         processes=MULTIHOST["processes"], U=U, N=N,
+         W=dk.mask_words(args[0]),
+         launches_per_tick=2 * MULTIHOST["shards"] // MULTIHOST["processes"],
+         **timed(lambda: dk.delivery_matrix_cuda(*args),
+                 lambda: dk.delivery_matrix_reference(*args)),
+         write_floor_ms=write_floor_ms(U, N, device),
+         **bound(*dense_work(*args), peak_ops))
+
     # the kernel line reads the uniform slice tick; the launches are the
-    # slice phase's, the mesh phase's MeshGroup runs', the broker's and
-    # the broker processes' of the cluster phase
+    # slice phase's, the mesh phase's MeshGroup runs', the broker's, the
+    # broker processes' of the cluster phase, the mesh-broker group runs'
+    # and the multi-host phase's worker and broker processes
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

@@ -15,7 +15,12 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
   the step, and under a broker the asyncio pump with its egress and host
   fallback; socket-free, one ``step()`` returns ``(user, frame)`` pairs
 - ``broker.mesh_group`` — a socket-free ``MeshGroup``: N broker shards in
-  one process, one mesh step per tick, per-shard pairs
+  one process, one mesh step per tick, per-shard pairs; and the
+  ``MeshBrokerGroup`` whose shards are brokers
+- ``parallel.multihost`` and ``broker.multihost_group`` — a mesh that
+  spans OS processes over ``torch.distributed``, and the
+  ``MultiHostBrokerGroup`` every process steps in lockstep (its workers
+  and the two-process deployment in ``testing.two_host``)
 - ``broker.broker``, ``broker.tasks``, ``broker.test_harness`` and
   ``proto`` — the single-broker host data path over the Memory, TCP and
   TCP+TLS transports, copied from the JAX package (``native`` stands in

@@ -13,10 +13,19 @@ non-zero without it rather than serve on the CPU unasked), and
 delivery step. On SIGINT/SIGTERM the broker drains and logs one
 ``device plane exit`` line: the plane's steps, the messages it routed,
 its steps' median parts and this process's launches of each kernel
-(``broker serving`` gives the same after the warm-up). Not copied yet
-(ROADMAP.md, Queue A): ``--shards``, the mesh group (``--mesh-shards``,
-``--multihost-*``), the io_uring and pump selectors, and the re-homing of
-users on a drain.
+(``broker serving`` gives the same after the warm-up).
+
+``--mesh-shards N`` makes the broker a shard of a multi-process mesh
+group instead (``broker.multihost_group``): every broker process of the
+deployment joins one process group (``--multihost-coordinator``,
+``--multihost-process-id``, ``--multihost-num-processes``), builds the
+same global mesh of N shards and attaches to a local shard
+(``--mesh-shard``, default the first); the inter-broker plane is the
+mesh step, so no host broker links form. Each process contributes every
+visible CUDA card once, or with ``--device`` its N / processes shards
+folded onto that one device. Not copied yet (ROADMAP.md, Queue A):
+``--shards``, the io_uring and pump selectors, and the re-homing of users
+on a drain.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from pushcdn_tpu_torch.bin.common import (
     tune_gc,
 )
 from pushcdn_tpu_torch.broker.broker import GIB, Broker, BrokerConfig
+from pushcdn_tpu_torch.proto.error import Error
 
 logger = logging.getLogger("pushcdn.broker")
 
@@ -89,9 +99,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-frame-bytes", type=int, default=None,
                    help="frame slot bytes (default 2048)")
     p.add_argument("--device-batch-window", type=float, default=None,
-                   help="seconds: the coalescing window for trickle "
-                        "traffic (bursts and idle arrivals skip it; "
-                        "default 1 ms)")
+                   help="seconds. Single-shard: the coalescing window for "
+                        "trickle traffic (bursts and idle arrivals skip "
+                        "it; default 1 ms). Mesh group: the lockstep step "
+                        "cadence every process ticks at (default 1 ms)")
+    # ---- multi-process mesh group (torch.distributed) -----------------
+    p.add_argument("--multihost-coordinator", default=None,
+                   help="host:port of the process group's rendezvous "
+                        "(rank 0 serves it); with --mesh-shards, joins "
+                        "the multi-process mesh broker group")
+    p.add_argument("--multihost-process-id", type=int, default=None)
+    p.add_argument("--multihost-num-processes", type=int, default=None)
+    p.add_argument("--mesh-shards", type=int, default=None,
+                   help="global broker-mesh shard count; this broker "
+                        "attaches to --mesh-shard (default: the first "
+                        "local shard)")
+    p.add_argument("--mesh-shard", type=int, default=None)
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
@@ -114,23 +137,95 @@ def kernel_launches() -> dict:
 
 
 def log_plane(what: str, plane) -> None:
-    """One line of JSON after ``what``: the plane's counters, the medians
-    of its recent steps' parts in ms, and this process's kernel
-    launches."""
+    """One line of JSON after ``what``: the plane's counters (for a mesh
+    group's shard, the group's), the medians of its recent steps' parts
+    in ms, and this process's kernel launches."""
     fields = dict(launches=kernel_launches())
     if plane is not None:
+        group = getattr(plane, "group", None)
+        owner = plane if group is None else group
         fields.update(steps=plane.steps, messages_routed=plane.messages_routed,
-                      delivery_impl=plane.delivery_impl,
-                      device=str(plane.device), disabled=plane.disabled)
-        if plane.recent_steps:
+                      disabled=plane.disabled)
+        if group is None:
+            fields.update(delivery_impl=plane.delivery_impl,
+                          device=str(plane.device))
+        else:
+            from pushcdn_tpu_torch.parallel.multihost import (
+                exchange_transport,
+            )
+            mesh = group.mesh
+            fields.update(shard=plane.shard, mesh_shards=mesh.size,
+                          local_shards=mesh.local_indices,
+                          devices=[str(d) for d in mesh.local_devices],
+                          exchange=exchange_transport(mesh),
+                          collectives_last_step=group.collectives_last_step)
+        if owner.recent_steps:
             fields["step_ms_median"] = {
                 part: statistics.median(getattr(s, part + "_s")
-                                        for s in plane.recent_steps) * 1e3
+                                        for s in owner.recent_steps) * 1e3
                 for part in ("snapshot", "device", "pairs", "egress")}
     logger.info("%s %s", what, json.dumps(fields))
 
 
+def check_mesh_flags(args: argparse.Namespace) -> None:
+    """The JAX binary's rules for the mesh-group flags."""
+    if args.device_plane and args.mesh_shards is not None:
+        raise SystemExit("--device-plane (single-shard) and --mesh-shards "
+                         "(mesh group) are mutually exclusive")
+    if args.mesh_shard is not None and args.mesh_shards is None:
+        raise SystemExit("--mesh-shard requires --mesh-shards")
+
+
+def attach_mesh_group(args: argparse.Namespace, broker: Broker) -> None:
+    """Join the process group, build the global mesh and attach
+    ``broker`` to its shard (``--mesh-shards``)."""
+    from pushcdn_tpu_torch.broker.mesh_group import MeshGroupConfig
+    from pushcdn_tpu_torch.broker.multihost_group import MultiHostBrokerGroup
+    from pushcdn_tpu_torch.parallel import multihost
+
+    try:
+        multihost.initialize(args.multihost_coordinator,
+                             args.multihost_num_processes,
+                             args.multihost_process_id)
+    except Error as exc:
+        raise SystemExit(f"--multihost-*: {exc}") from None
+    local_devices = None
+    if args.device is not None:
+        processes = multihost.process_count()
+        if args.mesh_shards % processes:
+            raise SystemExit(f"--mesh-shards {args.mesh_shards} does not "
+                             f"split over {processes} processes")
+        local_devices = [args.device] * (args.mesh_shards // processes)
+    try:
+        mesh = multihost.pod_broker_mesh(args.mesh_shards,
+                                         local_devices=local_devices)
+    except (Error, RuntimeError) as exc:
+        raise SystemExit(f"--mesh-shards: {exc}") from None
+    group = MultiHostBrokerGroup(mesh, MeshGroupConfig(**plane_overrides(
+        args)), discovery=broker.discovery)
+    shard = (args.mesh_shard if args.mesh_shard is not None
+             else group.local_shards[0])
+    if shard not in group.local_shards:
+        raise SystemExit(
+            f"--mesh-shard {shard} is not local to this process (local "
+            f"shards: {group.local_shards}); a non-local attachment would "
+            "silently blackhole traffic")
+    group.attach(broker, shard)
+
+
+def plane_overrides(args: argparse.Namespace) -> dict:
+    out = {}
+    if args.device_ring_slots is not None:
+        out["ring_slots"] = args.device_ring_slots
+    if args.device_frame_bytes is not None:
+        out["frame_bytes"] = args.device_frame_bytes
+    if args.device_batch_window is not None:
+        out["batch_window_s"] = args.device_batch_window
+    return out
+
+
 async def amain(args: argparse.Namespace) -> None:
+    check_mesh_flags(args)
     run_def = run_def_from_args(args.broker_transport, args.user_transport,
                                 args.discovery_endpoint, args.num_topics,
                                 args.global_permits, scheme=args.scheme)
@@ -142,15 +237,8 @@ async def amain(args: argparse.Namespace) -> None:
             resolve_device(args.device)
         except RuntimeError as exc:
             raise SystemExit(f"--device-plane: {exc}") from None
-        overrides = {}
-        if args.device_ring_slots is not None:
-            overrides["ring_slots"] = args.device_ring_slots
-        if args.device_frame_bytes is not None:
-            overrides["frame_bytes"] = args.device_frame_bytes
-        if args.device_batch_window is not None:
-            overrides["batch_window_s"] = args.device_batch_window
         device_plane = DevicePlaneConfig(
-            delivery_impl=delivery_impl_from_env(), **overrides)
+            delivery_impl=delivery_impl_from_env(), **plane_overrides(args))
     broker = await Broker.new(BrokerConfig(
         run_def=run_def,
         keypair=keypair_from_seed(args.key_seed, args.scheme),
@@ -167,7 +255,11 @@ async def amain(args: argparse.Namespace) -> None:
         sync_interval_s=args.sync_interval,
         device_plane=device_plane,
         device=args.device,
+        # a mesh group's inter-broker plane is the mesh step
+        form_mesh=args.mesh_shards is None,
     ))
+    if args.mesh_shards is not None:
+        attach_mesh_group(args, broker)
     # the plane warms up here; on the card a kernel that does not build
     # or launch raises, and the process exits non-zero
     await broker.start()

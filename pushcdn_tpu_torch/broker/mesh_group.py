@@ -184,6 +184,8 @@ class MeshGroup:
         self.config = config or MeshGroupConfig()
         c = self.config
         B = self.num_shards = mesh.size
+        # every step at full shapes, traffic or not (see _snapshot)
+        self.lockstep = mesh.spans_processes
         self.step_fn = MeshLaneStep(
             mesh, gather_bytes=c.gather_frame_bytes,
             fused=c.fused_collective)
@@ -392,14 +394,20 @@ class MeshGroup:
         liveness mask and the slots quarantined so far. None when nothing
         is staged and no state change forces a step. Under the broker
         group's pump this runs on the event loop, where the observer
-        hooks run."""
+        hooks run.
+
+        A ``lockstep`` group (one whose mesh spans processes, where every
+        process must enter the same collectives with the same shapes
+        every tick, whatever it has staged) always steps, at full shapes
+        and over the whole mirrors."""
         c = self.config
-        if not self._state_dirty and self._staged_total() == 0:
+        lockstep = self.lockstep
+        if not (lockstep or self._state_dirty or self._staged_total()):
             return None
         self._state_dirty = False
         lat = c.latency_slots
-        small = (all(r.slots - r.free_slots <= lat
-                     for r in self.lane_rings[0])
+        small = not lockstep and (all(r.slots - r.free_slots <= lat
+                                      for r in self.lane_rings[0])
                  and all(b.max_used <= lat for b in self.lane_buckets[0])
                  and all(r.free_slots == r.slots
                          for rings in self.lane_rings[1:] for r in rings)
@@ -412,7 +420,8 @@ class MeshGroup:
         if small:
             batches = [[slice_batch(b, lat) for b in batches[0]]]
             directs = [[slice_direct_batch(d, lat) for d in directs[0]]]
-        u_eff = effective_users(self.slots.high_water, c.num_user_slots)
+        u_eff = (c.num_user_slots if lockstep else
+                 effective_users(self.slots.high_water, c.num_user_slots))
         quarantined, self._quarantine = self._quarantine, []
         return _MeshSnapshot(
             batches, directs, self._owner[:u_eff].copy(),
@@ -455,12 +464,14 @@ class MeshGroup:
         pump, in a worker thread). ``batches`` and ``directs`` are
         [lane][shard] host snapshots. Lanes idle on every shard reuse
         cached device-side empty batches; zero-width byte stubs stand in
-        for frame bytes unless ``gather_frame_bytes``. Returns the
-        deliveries, the seconds spent uploading and the seconds spent
-        extracting pairs."""
+        for frame bytes unless ``gather_frame_bytes``. Only local shards'
+        rows go up and only local shards deliver (every shard, in one
+        process). Returns the deliveries, the seconds spent uploading and
+        the seconds spent extracting pairs."""
         t0 = time.perf_counter()
         B = self.num_shards
-        devices = self.mesh.devices
+        local = self.mesh.local_indices
+        devices = self.mesh.local_devices
         gather = self.config.gather_frame_bytes
 
         def up(a, dev):
@@ -470,7 +481,7 @@ class MeshGroup:
             # every shard's row is the same global view: one upload per
             # distinct device, shared by the shards on it
             per_dev = {}
-            for dev in self.mesh.distinct_devices():
+            for dev in dict.fromkeys(devices):
                 o = up(owner, dev)
                 per_dev[dev] = (
                     RouterState(
@@ -498,23 +509,26 @@ class MeshGroup:
             its cached device-side empties."""
             if not busy and key in self._idle_dev_lanes:
                 return self._idle_dev_lanes[key]
+            rows = [lane[i] for i in local]
             if key[0] == "b":
                 dev_lane = [IngressBatch(
                     frame_bytes(b.bytes_, dev), up(b.kind, dev),
                     up(b.length, dev), up(b.topic_mask.view(np.int32), dev),
                     up(b.dest, dev), up(b.valid, dev))
-                    for b, dev in zip(lane, devices)]
+                    for b, dev in zip(rows, devices)]
             else:
                 dev_lane = [DirectIngress(
                     frame_bytes(d.bytes_, dev), up(d.length, dev),
                     up(d.dest, dev), up(d.valid, dev))
-                    for d, dev in zip(lane, devices)]
+                    for d, dev in zip(rows, devices)]
             if not busy:
                 self._idle_dev_lanes[key] = dev_lane
             return dev_lane
 
-        busy_b = [any(b.valid.any() for b in lane) for lane in batches]
-        busy_d = [any(d.valid.any() for d in lane) for lane in directs]
+        busy_b = [any(lane[i].valid.any() for i in local)
+                  for lane in batches]
+        busy_d = [any(lane[i].valid.any() for i in local)
+                  for lane in directs]
         lanes_dev = [lane_to_dev(("b", li, lane[0].valid.shape[0]), lane,
                                  busy_b[li])
                      for li, lane in enumerate(batches)]
@@ -523,20 +537,28 @@ class MeshGroup:
                        for li, lane in enumerate(directs)]
         t1 = time.perf_counter()
         before = trace_collectives()
+        n = len(local)
         result = self.step_fn(
             [s for s, _ in state_rows],
-            [tuple(lane[i] for lane in lanes_dev) for i in range(B)],
-            [tuple(lane[i] for lane in directs_dev) for i in range(B)],
+            [tuple(lane[k] for lane in lanes_dev) for k in range(n)],
+            [tuple(lane[k] for lane in directs_dev) for k in range(n)],
             [live for _, live in state_rows])
         self.collectives_last_step = trace_collectives() - before
         self.steps += 1
+        result = dict(zip(local, result))
 
         pairs_s = 0.0
-        live = [s for s in range(B) if liveness[s]]
+        live = [s for s in local if liveness[s]]
         out: List[ShardDeliveries] = []
+        # across processes a lane idle here may carry other processes'
+        # frames: its readback is skipped only when it delivers nothing
+        remote = self.mesh.spans_processes
+        none = (np.empty(0, np.int64), np.empty(0, np.int64))
 
-        def pairs(deliver: torch.Tensor):
+        def pairs(deliver: torch.Tensor, busy: bool):
             nonlocal pairs_s
+            if not busy and not bool(deliver.any()):
+                return none
             d = deliver.cpu().numpy()
             t = time.perf_counter()
             users, frames = np.nonzero(d)
@@ -544,14 +566,15 @@ class MeshGroup:
             return users, frames
 
         for li, lane in enumerate(batches):
-            if not busy_b[li]:
+            if not (busy_b[li] or remote):
                 continue  # an idle lane can't deliver: skip its readback
-            found = [(s, *pairs(result[s].lanes[li].deliver)) for s in live]
+            found = [(s, *pairs(result[s].lanes[li].deliver, busy_b[li]))
+                     for s in live]
             found = [f for f in found if len(f[1])]
             if not found:
                 continue
             if gather:
-                g = result[0].lanes[li]
+                g = result[found[0][0]].lanes[li]
                 lengths = g.gathered_length.cpu().numpy()
                 blocks = g.gathered_bytes.cpu().numpy()
             else:
@@ -560,11 +583,11 @@ class MeshGroup:
             out.extend(ShardDeliveries(s, li, False, users, frames, lengths,
                                        blocks) for s, users, frames in found)
         for li, lane in enumerate(directs):
-            if not busy_d[li]:
+            if not (busy_d[li] or remote):
                 continue
             for s in live:
                 g = result[s].direct_lanes[li]
-                users, frames = pairs(g.deliver)
+                users, frames = pairs(g.deliver, busy_d[li])
                 if not len(users):
                     continue
                 if gather:
@@ -699,7 +722,7 @@ class MeshBrokerGroup(MeshGroup):
         """Whether a failed warm-up or step leaves the brokers serving on
         their host links (the CPU, as in the JAX package) rather than
         ending them (the card)."""
-        return all(d.type != "cuda" for d in self.mesh.devices)
+        return all(d.type != "cuda" for d in self.mesh.distinct_devices())
 
     @property
     def pump_task(self) -> Optional[asyncio.Task]:
@@ -707,10 +730,13 @@ class MeshBrokerGroup(MeshGroup):
 
     # ---- wiring ----------------------------------------------------------
 
+    # the per-broker facade :meth:`attach` installs
+    plane_class = MeshShardPlane
+
     def attach(self, broker: "Broker", shard: int) -> MeshShardPlane:
         """Make ``broker`` shard ``shard`` of this group (call after
         ``Broker.new``, before ``Broker.start``)."""
-        plane = MeshShardPlane(self, shard)
+        plane = self.plane_class(self, shard)
         self.brokers[shard] = broker
         self._liveness[shard] = True
         self._state_rev += 1

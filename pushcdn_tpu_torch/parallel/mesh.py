@@ -14,6 +14,14 @@ Step inputs and outputs on a mesh are per-shard sequences, element ``i``
 on shard ``i``'s device; :func:`shard_rows` splits stacked ``[B, ...]``
 leaves into that form.
 
+A mesh may span OS processes (``parallel.multihost.pod_broker_mesh``):
+then it also holds each shard's process rank, this process's rank and
+the ``torch.distributed`` process group the exchange runs over. Shards
+are rank-contiguous, and only this process's shards (its *local*
+shards) have a device here; a step's inputs and outputs are sequences
+over the local shards only. A mesh in one process has no ranks and no
+group, and every shard is local.
+
 :class:`MeshDiscovery` answers broker membership from the mesh (and a
 liveness mask) with no I/O, and delegates permits and the whitelist to
 an :class:`~pushcdn_tpu_torch.proto.discovery.embedded.Embedded` store.
@@ -21,8 +29,8 @@ an :class:`~pushcdn_tpu_torch.proto.discovery.embedded.Embedded` store.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,17 +49,43 @@ BROKER_AXIS = "brokers"
 
 @dataclass(frozen=True)
 class BrokerMesh:
-    """The broker-shard axis: one device per shard, in mesh order."""
+    """The broker-shard axis: one device per shard, in mesh order. On a
+    mesh that spans processes, ``ranks[i]`` is shard ``i``'s process,
+    ``devices[i]`` is None unless that process is this one (``rank``),
+    ``group`` is the process group of the exchange (``timeout_s`` bounds
+    each of its collectives) and ``stage_host`` says whether the exchange
+    copies CUDA rows through host memory (a backend that does not take
+    CUDA tensors)."""
 
-    devices: Tuple[torch.device, ...]
+    devices: Tuple[Optional[torch.device], ...]
+    ranks: Optional[Tuple[int, ...]] = None
+    rank: int = 0
+    group: Any = field(default=None, compare=False)
+    stage_host: bool = False
+    timeout_s: Optional[float] = None
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None
+
+    @property
+    def local_indices(self) -> List[int]:
+        """The shards whose device is in this process, in mesh order."""
+        if self.ranks is None:
+            return list(range(self.size))
+        return [i for i, r in enumerate(self.ranks) if r == self.rank]
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        return [self.devices[i] for i in self.local_indices]
+
     def distinct_devices(self) -> List[torch.device]:
-        """Each device once, in first-shard order."""
-        return list(dict.fromkeys(self.devices))
+        """Each local device once, in first-shard order."""
+        return list(dict.fromkeys(d for d in self.devices if d is not None))
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -103,11 +137,12 @@ def _tree_map(fn: Callable, tree):
 
 
 def shard_rows(mesh: BrokerMesh, tree) -> list:
-    """Split every leaf's leading broker axis: a list of ``mesh.size``
-    trees, tree ``i`` holding row ``i`` of each leaf on shard ``i``'s
-    device."""
-    return [_tree_map(lambda x, i=i, d=dev: x[i].to(d).contiguous(), tree)
-            for i, dev in enumerate(mesh.devices)]
+    """Split every leaf's leading broker axis: one tree per local shard
+    (every shard, in one process), the tree of shard ``i`` holding row
+    ``i`` of each leaf on shard ``i``'s device."""
+    return [_tree_map(lambda x, i=i, d=mesh.devices[i]:
+                      x[i].to(d).contiguous(), tree)
+            for i in mesh.local_indices]
 
 
 def broker_identifier_for_device(mesh: BrokerMesh,

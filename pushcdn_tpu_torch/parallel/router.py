@@ -24,14 +24,19 @@ shard (an ``all_gather``; direct buckets go only to their owner, an
 ``all_to_all``), either one array at a time or packed into ONE buffer
 (the fused tick). Then each shard routes against the gathered rows on
 its own device, exactly as a single shard routes against its own rows
-with a leading axis of one. The exchange is copies between the shards'
-devices (``Tensor.to``): on one card folded into several shards it is
-device-to-device copies, not interconnect traffic.
+with a leading axis of one. In one process the exchange is copies
+between the shards' devices (``Tensor.to``): on one card folded into
+several shards it is device-to-device copies, not interconnect traffic.
+On a mesh that spans processes each process passes only its local
+shards' rows, and one collective of the mesh's ``torch.distributed``
+process group moves them (through host memory where the backend does
+not take CUDA tensors, ``BrokerMesh.stage_host``).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -77,29 +82,88 @@ def set_delivery_impl(impl: str) -> None:
 
 _COLLECTIVES = [0]
 
+# Seconds spent by cross-process exchanges so far in this process:
+# copying rows between the card and host memory around the collective
+# (``stage``), and in the process group's collective itself.
+_EXCHANGE_SECONDS = {"stage": 0.0, "collective": 0.0}
+
 
 def trace_collectives() -> int:
     """Collectives issued so far in this process (diff around a step)."""
     return _COLLECTIVES[0]
 
 
+def exchange_seconds() -> dict:
+    """Cross-process exchange time so far in this process, split into
+    host staging and the collective (diff around a step)."""
+    return dict(_EXCHANGE_SECONDS)
+
+
+def _gather_across(xs: Sequence[torch.Tensor],
+                   mesh: BrokerMesh) -> dict:
+    """The cross-process all_gather: ``xs`` are the local shards' rows.
+    They are stacked (padded to the largest process's shard count), one
+    collective of the mesh's process group gathers every process's
+    stack, and the rows come back in mesh order, one [B, ...] tensor per
+    distinct local device."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    home = torch.device("cpu") if mesh.stage_host else xs[0].device
+    local = torch.stack([x.to(home) for x in xs])
+    as_bool = local.dtype == torch.bool   # moved as bytes
+    if as_bool:
+        local = local.view(torch.uint8)
+    ranks = mesh.ranks
+    per = [ranks.count(r) for r in range(max(ranks) + 1)]
+    width = max(per)
+    if local.shape[0] < width:
+        local = torch.cat([local, local.new_zeros(
+            (width - local.shape[0],) + tuple(local.shape[1:]))])
+    out = local.new_empty((len(per),) + tuple(local.shape))
+    t1 = time.perf_counter()
+    dist.all_gather(list(out.unbind(0)), local, group=mesh.group)
+    t2 = time.perf_counter()
+    out = out.reshape((len(per) * width,) + tuple(local.shape[1:]))
+    if len(per) * width != len(ranks):
+        # drop the padding rows: shard i sits at its rank's block
+        starts = [sum(per[:r]) for r in range(len(per))]
+        out = out[[r * width + i - starts[r] for i, r in enumerate(ranks)]]
+    if as_bool:
+        out = out.view(torch.bool)
+    gathered = {dev: out.to(dev) for dev in mesh.distinct_devices()}
+    t3 = time.perf_counter()
+    _EXCHANGE_SECONDS["stage"] += (t1 - t0) + (t3 - t2)
+    _EXCHANGE_SECONDS["collective"] += t2 - t1
+    return gathered
+
+
 def _all_gather(xs: Sequence[torch.Tensor],
                 mesh: BrokerMesh) -> List[torch.Tensor]:
-    """``xs[j]`` is shard ``j``'s tensor on its device. Every shard gets
-    ``stack(xs)`` ([B, ...], rows in mesh order) on its own device;
-    shards that share a device share one stacked result."""
+    """``xs[j]`` is local shard ``j``'s tensor on its device. Every local
+    shard gets the [B, ...] stack of every shard's tensor (rows in mesh
+    order) on its own device; shards that share a device share one
+    stacked result."""
     _COLLECTIVES[0] += 1
-    stacked = {dev: torch.stack([x.to(dev) for x in xs])
-               for dev in mesh.distinct_devices()}
-    return [stacked[dev] for dev in mesh.devices]
+    if mesh.spans_processes:
+        stacked = _gather_across(xs, mesh)
+    else:
+        stacked = {dev: torch.stack([x.to(dev) for x in xs])
+                   for dev in mesh.distinct_devices()}
+    return [stacked[dev] for dev in mesh.local_devices]
 
 
 def _all_to_all(xs: Sequence[torch.Tensor],
                 mesh: BrokerMesh) -> List[torch.Tensor]:
-    """``xs[j]`` is shard ``j``'s [B, ...] tensor whose axis 0 is the
-    destination shard. Shard ``i`` gets ``stack([x_j[i] for j])``: what
-    every source shard addressed to it, axis 0 now the source shard."""
+    """``xs[j]`` is local shard ``j``'s [B, ...] tensor whose axis 0 is
+    the destination shard. Shard ``i`` gets ``stack([x_j[i] for j])``:
+    what every source shard addressed to it, axis 0 now the source
+    shard. Across processes it is the gather of every source's buckets
+    and a column selection, as in the fused tick."""
     _COLLECTIVES[0] += 1
+    if mesh.spans_processes:
+        stacked = _gather_across(xs, mesh)
+        return [stacked[mesh.devices[i]][:, i] for i in mesh.local_indices]
     return [torch.stack([x[i].to(dev) for x in xs])
             for i, dev in enumerate(mesh.devices)]
 
@@ -457,9 +521,9 @@ def _exchange_per_array(mesh: BrokerMesh, states, batches, directs,
                         gather_bytes: bool) -> list:
     """One collective per array: 4 for the state, 5 per broadcast lane
     and 3 per direct lane (one more each with ``gather_bytes``). Returns
-    each shard's (crdt_rows, lane_rows, direct_rows)."""
-    B = mesh.size
-    none = [None] * B
+    each local shard's (crdt_rows, lane_rows, direct_rows)."""
+    n = len(states)
+    none = [None] * n
     crdt = [_all_gather([_state_leaves(s)[k] for s in states], mesh)
             for k in range(4)]
     lanes = []
@@ -479,7 +543,7 @@ def _exchange_per_array(mesh: BrokerMesh, states, batches, directs,
     return [(tuple(c[i] for c in crdt),
              [tuple(c[i] for c in cols) for cols in lanes],
              [tuple(c[i] for c in cols) for cols in dlanes])
-            for i in range(B)]
+            for i in range(n)]
 
 
 def _exchange_fused(mesh: BrokerMesh, states, batches, directs,
@@ -499,7 +563,7 @@ def _exchange_fused(mesh: BrokerMesh, states, batches, directs,
     # the tick's ONE collective
     gathered = _all_gather([pk.pack() for pk in packers], mesh)
     out = []
-    for i, (pk, g) in enumerate(zip(packers, gathered)):
+    for i, pk, g in zip(mesh.local_indices, packers, gathered):
         fields = iter(pk.unpack(g))
 
         def take(n):
@@ -507,11 +571,11 @@ def _exchange_fused(mesh: BrokerMesh, states, batches, directs,
                                            for _ in range(n - first))
 
         crdt_rows = tuple(next(fields) for _ in range(4))
-        lane_rows = [take(6) for _ in batches[i]]
+        lane_rows = [take(6) for _ in batches[0]]
         # the all_to_all re-expressed: column i of the gathered
         # destination axis is what each source staged for THIS shard
         direct_rows = [tuple(None if x is None else x[:, i]
-                             for x in take(4)) for _ in directs[i]]
+                             for x in take(4)) for _ in directs[0]]
         out.append((crdt_rows, lane_rows, direct_rows))
     return out
 
@@ -523,7 +587,9 @@ class MeshLaneStep:
     lane tuples of :class:`DirectIngress` and, optionally, of bool[B]
     liveness rows (every shard carries the full membership mask; None
     means all live). Returns one :class:`MultiRouteResult` per shard. A
-    call is :meth:`exchange` then :meth:`route`.
+    call is :meth:`exchange` then :meth:`route`. On a mesh that spans
+    processes the sequences hold this process's local shards only, every
+    process calls the step in lockstep, and only local shards route.
 
     ``gather_bytes=False`` keeps frame bytes out of the exchange (lanes
     come back with ``gathered_bytes=None``): every shard's staged frames
@@ -531,17 +597,20 @@ class MeshLaneStep:
     mesh.
 
     ``fused`` picks the exchange's schedule. None picks it from the mesh:
-    per array when every shard shares one device, where the exchange is
-    copies on that device and packing only adds work; ONE collective
-    (the fused tick) when the shards span devices, where each collective
-    is a transfer between them. True or False forces a schedule."""
+    per array when every shard shares one device in one process, where
+    the exchange is copies on that device and packing only adds work;
+    ONE collective (the fused tick) when the shards span devices or
+    processes, where each collective is a transfer between them. True or
+    False forces a schedule."""
 
     def __init__(self, mesh: BrokerMesh, gather_bytes: bool = True,
                  fused: Optional[bool] = None):
         self.mesh = mesh
         self.gather_bytes = gather_bytes
-        self.fused = (len(mesh.distinct_devices()) > 1 if fused is None
-                      else fused)
+        if fused is None:
+            fused = (mesh.spans_processes
+                     or len(mesh.distinct_devices()) > 1)
+        self.fused = fused
 
     def exchange(self, states: Sequence[RouterState], batches: Sequence,
                  directs: Sequence) -> list:
@@ -553,28 +622,29 @@ class MeshLaneStep:
     def route(self, states: Sequence[RouterState], rows: list,
               liveness: Optional[Sequence[torch.Tensor]] = None
               ) -> List[MultiRouteResult]:
-        """Each shard's routing against its exchanged ``rows``, on its
-        own device."""
-        return [_route_exchanged(states[i], i,
-                                 None if liveness is None else liveness[i],
-                                 *rows[i])
-                for i in range(self.mesh.size)]
+        """Each local shard's routing against its exchanged ``rows``, on
+        its own device."""
+        return [_route_exchanged(states[k], i,
+                                 None if liveness is None else liveness[k],
+                                 *rows[k])
+                for k, i in enumerate(self.mesh.local_indices)]
 
     def __call__(self, states: Sequence[RouterState], batches: Sequence,
                  directs: Optional[Sequence] = None,
                  liveness: Optional[Sequence[torch.Tensor]] = None
                  ) -> List[MultiRouteResult]:
-        B = self.mesh.size
+        B = len(self.mesh.local_indices)
+        what = " local" if self.mesh.spans_processes else ""
         if directs is None:
             directs = [()] * B
         for name, seq in (("states", states), ("batches", batches),
                           ("directs", directs)):
             if len(seq) != B:
                 raise ValueError(f"{name} has {len(seq)} shards, the mesh "
-                                 f"has {B}")
+                                 f"has {B}{what}")
         if liveness is not None and len(liveness) != B:
             raise ValueError(f"liveness has {len(liveness)} rows, the mesh "
-                             f"has {B} shards")
+                             f"has {B}{what} shards")
         return self.route(states, self.exchange(states, batches, directs),
                           liveness)
 

@@ -1,7 +1,9 @@
 """Seeded inputs shared by the port's tests and ``chip_smoke.py``, and
 the in-process whole-system fixtures (``Cluster``: a marshal and N
 brokers on one discovery file; ``MeshCluster``: a marshal and the N
-broker shards of one mesh group)."""
+broker shards of one mesh group); the two-process deployment
+(``two_host``) and the worker modules that run one process of a pair
+(``lockstep_worker``, ``two_host_worker``, ``burst_worker``)."""
 
 from pushcdn_tpu_torch.testing.cluster import (  # noqa: F401
     Cluster,
@@ -9,12 +11,17 @@ from pushcdn_tpu_torch.testing.cluster import (  # noqa: F401
     wait_until,
 )
 
-__all__ = ["Cluster", "MeshCluster", "wait_mesh_interest", "wait_until"]
+__all__ = ["Cluster", "MeshCluster", "TwoHostNode", "make_two_host_node",
+           "spawn_worker_pair", "wait_mesh_interest", "wait_until"]
 
 
 def __getattr__(name):
-    # lazy: the mesh cluster imports torch, the host-only Cluster does not
+    # lazy: the mesh cluster and the two-process deployment import torch,
+    # the host-only Cluster does not
     if name == "MeshCluster":
         from pushcdn_tpu_torch.testing.mesh_cluster import MeshCluster
         return MeshCluster
+    if name in ("TwoHostNode", "make_two_host_node", "spawn_worker_pair"):
+        from pushcdn_tpu_torch.testing import two_host
+        return getattr(two_host, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,9 +3,13 @@ marshal and ``broker --device-plane --device cpu`` serve a ``Client``
 over TCP, a pipelined burst routes on the plane (``/metrics`` shows
 ``cdn_device_messages_routed`` > 0, the twin of
 ``tests/test_binaries.py::test_broker_binary_device_plane_end_to_end``)
-and both exit 0 on SIGTERM, the broker with its exit line; and the
-broker refuses what it cannot serve: a plane on CUDA where there is none,
-and delivery impls, schemes and discovery stores the port lacks."""
+and both exit 0 on SIGTERM, the broker with its exit line; two broker
+processes joined by ``--mesh-shards 2 --multihost-*`` serve a client
+each, a broadcast crossing from one to the other and a direct crossing
+back with no host broker link; and the broker refuses what it cannot
+serve: a plane on CUDA where there is none, delivery impls, schemes and
+discovery stores the port lacks, and the mesh-group flags the JAX binary
+refuses."""
 
 import asyncio
 import json
@@ -135,7 +139,19 @@ async def test_broker_binary_device_plane_end_to_end(tmp_path):
      {"PUSHCDN_DELIVERY_IMPL": "pallas"}, "PUSHCDN_DELIVERY_IMPL='pallas'"),
     (("--scheme", "bls-bn254"), {}, "ROADMAP"),
     (("--user-transport", "quic"), {}, "unknown transport"),
-], ids=["cuda-hidden", "pallas", "bls", "quic"])
+    (("--device-plane", "--mesh-shards", "2", "--device", "cpu"), {},
+     "mutually exclusive"),
+    (("--mesh-shard", "1"), {}, "--mesh-shard requires --mesh-shards"),
+    # one process owns both shards of a 2-shard mesh: shard 5 is no one's
+    (("--mesh-shards", "2", "--mesh-shard", "5", "--device", "cpu"), {},
+     "is not local"),
+    (("--mesh-shards", "2"), {"CUDA_VISIBLE_DEVICES": ""},
+     "CUDA is not available"),
+    (("--mesh-shards", "2", "--device", "cpu", "--multihost-coordinator",
+      "127.0.0.1:1"), {}, "the process count"),
+], ids=["cuda-hidden", "pallas", "bls", "quic", "plane-and-mesh",
+        "shard-without-mesh", "non-local-shard", "mesh-cuda-hidden",
+        "partial-multihost"])
 def test_broker_binary_refuses_what_it_cannot_serve(tmp_path, args, env,
                                                      needle):
     pub, priv = _free_ports(2)
@@ -169,3 +185,116 @@ def test_spawned_binaries_are_the_ports():
             p.kill()
     assert p.args[1:3] == ["-m", "pushcdn_tpu_torch.bin.client"]
     assert os.path.basename(p.args[0]).startswith("python")
+
+
+async def test_multihost_broker_binaries_end_to_end(tmp_path):
+    """A marshal and two ``broker --mesh-shards 2 --multihost-* --device
+    cpu`` processes, one shard each: a client on each broker, a broadcast
+    from one reaching the other through the mesh step, a direct crossing
+    back through the user-slot directory, no host broker link on either
+    side; both brokers exit 0 on SIGTERM with their exit lines."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import Tcp
+
+    db = str(tmp_path / "cdn.sqlite")
+    ports = _free_ports(8)
+    coordinator, marshal = ports[:2]
+    logs = {n: tmp_path / f"{n}.log" for n in ("marshal", "b0", "b1")}
+    procs = {"marshal": spawn_binary(
+        "marshal", "--discovery-endpoint", db,
+        "--bind-endpoint", f"127.0.0.1:{marshal}", "--user-transport", "tcp",
+        log_path=logs["marshal"])}
+    metrics = {}
+    for rank in (0, 1):
+        pub, priv, metrics[rank] = ports[2 + 3 * rank:5 + 3 * rank]
+        procs[f"b{rank}"] = spawn_binary(
+            "broker", *_broker_args(
+                db, pub, priv, "--metrics-bind-endpoint",
+                f"127.0.0.1:{metrics[rank]}", "--user-transport", "tcp",
+                "--heartbeat-interval", "0.2", "--mesh-shards", "2",
+                "--multihost-coordinator", f"127.0.0.1:{coordinator}",
+                "--multihost-process-id", str(rank),
+                "--multihost-num-processes", "2", "--device", "cpu",
+                "--device-ring-slots", "16", "--device-batch-window", "0.01"),
+            log_path=logs[f"b{rank}"])
+
+    async def gauge(rank, name):
+        text = await asyncio.to_thread(
+            lambda: urllib.request.urlopen(
+                f"http://127.0.0.1:{metrics[rank]}/metrics",
+                timeout=5).read().decode())
+        return next(float(line.split()[-1]) for line in text.splitlines()
+                    if line.startswith(name + " "))
+
+    async def users():
+        out = []
+        for rank in (0, 1):
+            try:
+                out.append(await gauge(rank, "cdn_num_users_connected"))
+            except OSError:
+                out.append(None)
+        return out
+
+    clients = []
+    try:
+        for i, seed in enumerate((7101, 7102)):
+            c = Client(ClientConfig(
+                marshal_endpoint=f"127.0.0.1:{marshal}",
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+                protocol=Tcp, subscribed_topics={0}))
+            async with asyncio.timeout(45):   # cold start + registration
+                await c.ensure_initialized()
+                # the marshal places by load: the next client goes to the
+                # other broker once this one's heartbeat counts its user
+                while sorted(await users()) != ([0.0, 1.0] if i == 0
+                                                else [1.0, 1.0]):
+                    await asyncio.sleep(0.05)
+            await asyncio.sleep(1.0)   # 5 heartbeats carry the load
+            clients.append(c)
+        alice, bob = clients
+        await alice.send_broadcast_message([0], b"across processes")
+        for c in clients:
+            m = await asyncio.wait_for(c.receive_message(), 20)
+            assert isinstance(m, Broadcast) and \
+                bytes(m.message) == b"across processes"
+        # directs need the recipient's slot in the sender's directory
+        # mirror: wait for both entries, then for the mirrors' refresh
+        directory = await Embedded.new(db)
+        async with asyncio.timeout(20):
+            while len(await directory.get_user_slots()) < 2:
+                await asyncio.sleep(0.05)
+        await directory.close()
+        await asyncio.sleep(1.5)
+        await bob.send_direct_message(alice.public_key, b"and back")
+        m = await asyncio.wait_for(alice.receive_message(), 20)
+        assert isinstance(m, Direct) and bytes(m.message) == b"and back"
+        assert [await gauge(r, "cdn_num_brokers_connected")
+                for r in (0, 1)] == [0.0, 0.0]
+        for c in clients:
+            c.close()
+        assert all(p.poll() is None for p in procs.values()), \
+            "a binary died during the test"
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(p.wait, 30)
+               for n, p in procs.items()}
+        assert rcs == {"marshal": 0, "b0": 0, "b1": 0}, \
+            {n: logs[n].read_text()[-2000:] for n in procs}
+        for rank in (0, 1):
+            text = logs[f"b{rank}"].read_text()
+            serving = _exit_fields(text, "broker serving")
+            done = _exit_fields(text, "device plane exit")
+            assert serving["mesh_shards"] == 2
+            assert serving["local_shards"] == [rank] == [serving["shard"]]
+            assert serving["exchange"] == "gloo, CPU tensors"
+            assert done["steps"] > 0 and done["messages_routed"] >= 1
+            assert done["launches"] == {"delivery_matrix_cuda": 0,
+                                        "ragged_delivery_cuda": 0}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()

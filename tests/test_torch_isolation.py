@@ -267,3 +267,44 @@ def test_host_broker_serves_without_torch():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "ok"
+
+
+_WORKER = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["pushcdn_tpu"] = None
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert not any(m == "jax" or m.startswith(("jax.", "pushcdn_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("isolated")
+"""
+
+
+def test_two_process_workers_run_with_jax_and_reference_blocked(tmp_path):
+    """The multi-process group's workers (modules of the package, shared
+    by the tests and ``chip_smoke.py``) run a lockstep step pair with JAX
+    and the reference package blocked."""
+    from pushcdn_tpu_torch.testing.lockstep_worker import lane_step_case
+
+    np.savez(tmp_path / "case.npz", **lane_step_case("uniform", seed=1))
+    module = "pushcdn_tpu_torch.testing.lockstep_worker"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORKER, module, "--rank", str(rank),
+         "--init", f"file://{tmp_path}/rendezvous", "lane",
+         str(tmp_path), str(tmp_path / "case.npz")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=60)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-2000:]
+        assert f"rank {rank}: LOCKSTEP OK" in out and "isolated" in out
