@@ -100,8 +100,8 @@ Phases, each printing one JSON line:
    kernel; one ``mesh_broker`` line per run;
 11. the multi-host group — a global mesh of 8 shards in 2 processes, each
    folding its 4 shards onto the card, the exchange over a gloo process
-   group (the phase names its transport: CUDA tensors, or rows staged
-   through host memory), at phase 10's width with 256 x 2048 B base-lane
+   group (the phase names its transport: gloo takes the CUDA tensors), at
+   phase 10's width with 256 x 2048 B base-lane
    slots a shard (8 shards carry a 2048-frame burst in one tick) and 512
    user slots a shard. Runs: (1) two worker processes (``python -m
    pushcdn_tpu_torch.testing.lockstep_worker``) step a socket-free
@@ -117,7 +117,9 @@ Phases, each printing one JSON line:
    zipf burst, directs to users of the other process through the
    discovery directory; every delivery against the oracle, zero host
    broker links, 8 launches a step and one collective a tick, the idle
-   lockstep tick measured; beside it the same users and bursts through
+   lockstep tick measured and split (the stop barrier, the step, how
+   late the pump's window sleep returns, the directory's refreshes);
+   beside it the same users and bursts through
    one process's group of 8 shards on the card (reported, not claimed);
    (3) a marshal and two ``broker --mesh-shards 2 --multihost-*
    --device cuda:0`` processes, a TCP+TLS client on each: a broadcast
@@ -2293,11 +2295,11 @@ def multihost_lockstep(device, shape: dict) -> tuple:
         for rank in range(shape["processes"]):
             with open(os.path.join(d, f"rank{rank}-{i}.pkl"), "rb") as f:
                 outs.append(pickle.load(f))
-        ref = MeshGroup(make_broker_mesh(B, devices=[device] * B),
-                        MeshGroupConfig(**script["config"]))
         # full shapes, as the lockstep group steps: the same pairs, and
         # the kernel's captured inputs at the main path's shape
-        ref.lockstep = True
+        ref = MeshGroup(make_broker_mesh(B, devices=[device] * B),
+                        MeshGroupConfig(**script["config"]),
+                        full_shapes=True)
         for key, shard, topics in script["users"]:
             ref.claim_user(shard, key, topics)
         lanes = ref.config.lane_shapes()
@@ -2368,7 +2370,7 @@ def multihost_lockstep(device, shape: dict) -> tuple:
             stage_ms_median=med(0), snapshot_upload_ms_median=med(1),
             mesh_step_readback_ms_median=med(2),
             pair_extract_ms_median=med(3),
-            exchange_host_staging_ms_median=med(5),
+            exchange_staging_ms_median=med(5),
             exchange_collective_ms_median=med(6),
             delivery_matrix_cuda=int(rows[:, 7].sum())))
     return lines, launches, captured, workers_s
@@ -2433,16 +2435,37 @@ def multihost_check(label: str, outs, bursts, shape: dict) -> None:
 
 def step_medians(steps, exchange) -> dict:
     """Medians in ms over pump steps (StepTiming tuples) and their
-    exchange parts (host staging, collective)."""
+    exchange parts (staging, collective)."""
     r = np.asarray(steps, np.float64).reshape(-1, 6)
     x = np.asarray(exchange, np.float64).reshape(-1, 2)
     med = (lambda a, col: float(np.median(a[:, col]) * 1e3)
            if len(a) else None)
     return dict(snapshot_ms_median=med(r, 0), device_step_ms_median=med(r, 1),
-                exchange_host_staging_ms_median=med(x, 0),
+                exchange_staging_ms_median=med(x, 0),
                 exchange_collective_ms_median=med(x, 1),
                 pair_extract_ms_median=med(r, 2),
                 egress_ms_median=med(r, 3))
+
+
+def idle_split(out: dict) -> dict:
+    """One process's idle lockstep tick, in ms, as the mean of each part
+    over the quiet second: the window sleep, how late it returned (the
+    event loop's other work), the stop barrier, the step's parts, and
+    what none of them holds. Beside it the user-slot directory's share
+    of the loop (publish and read, per tick)."""
+    idle = out["idle"]
+    ticks = max(idle["steps"], 1)
+    mean = (lambda xs: float(np.mean(xs)) * 1e3 if len(xs) else 0.0)
+    steps = np.asarray(idle["recent_steps"], np.float64).reshape(-1, 6)
+    parts = dict(window=out["batch_window_s"] * 1e3,
+                 wake_lag=mean(idle["wake_lag"]),
+                 barrier=mean(idle["barrier"]),
+                 snapshot=mean(steps[:, 0]), device_step=mean(steps[:, 1]),
+                 pair_extract=mean(steps[:, 2]), egress=mean(steps[:, 3]))
+    tick = idle["seconds"] / ticks * 1e3
+    return dict(tick=tick, **parts, rest=tick - sum(parts.values()),
+                directory_per_tick=float(np.sum(idle["directory"])) * 1e3
+                / ticks)
 
 
 def multihost_brokers(device, shape: dict, seed: int) -> tuple:
@@ -2487,9 +2510,12 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
     check(links == [0] * B, f"{label}: host broker links {links}")
     for o in outs:
         b = o["busy"]
-        check(b["launches"] > 0 and b["launches"] == 2 * local * b["steps"],
+        # counted per whole step (a step in flight at the window's edge
+        # is in or out whole)
+        check(b["steps"] > 0 and set(b["launches_per_step"]) == {2 * local},
               f"{label}: rank {o['rank']} launched delivery_matrix_cuda "
-              f"{b['launches']} times in {b['steps']} steps")
+              f"{sorted(set(b['launches_per_step']))} times a step over "
+              f"{b['steps']} steps, want {2 * local}")
         check(set(b["collectives"]) == {1}, f"{label}: a fused tick counted "
               f"{sorted(set(b['collectives']))} collectives")
     lat = np.concatenate([o["latency_ns"] for o in outs])
@@ -2536,12 +2562,19 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
         idle_step=step_medians(idle_steps, idle_x),
         idle_barrier_ms_median=float(np.median(
             [b for o in outs for b in o["idle"]["barrier"]]) * 1e3),
+        idle_tick_split_ms_mean=[idle_split(o) for o in outs],
+        idle_directory_refreshes=[len(o["idle"]["directory"]) for o in outs],
+        idle_directory_publish_ms_median=float(np.median(
+            [r[0] for o in outs for r in o["idle"]["directory"]]) * 1e3),
+        idle_directory_read_ms_median=float(np.median(
+            [r[1] for o in outs for r in o["idle"]["directory"]]) * 1e3),
         busy_barrier_ms_median=float(np.median(
             [b for o in outs for b in o["busy"]["barrier"]]) * 1e3),
         batch_window_ms=outs[0]["batch_window_s"] * 1e3,
         routed_share=routed / deliveries,
         warmup_launches=[o["warm_launches"] for o in outs],
-        delivery_matrix_cuda=sum(o["busy"]["launches"] for o in outs),
+        delivery_matrix_cuda=sum(sum(o["busy"]["launches_per_step"])
+                                 for o in outs),
         host_links=links, run_s=run_s)
     return line, (bursts, start, pubs, plan), line["delivery_matrix_cuda"]
 

@@ -174,10 +174,14 @@ class _MeshSnapshot(NamedTuple):
 class MeshGroup:
     """Socket-free broker group over a mesh: global slot table, per-shard
     staging, one mesh step per :meth:`step`. ``mesh`` defaults to one
-    shard per visible CUDA device and raises without CUDA."""
+    shard per visible CUDA device and raises without CUDA.
+    ``full_shapes`` makes every step run at full shapes, traffic or not
+    (the ``lockstep`` snapshot); it defaults to whether the mesh spans
+    processes."""
 
     def __init__(self, mesh: Optional[BrokerMesh] = None,
-                 config: Optional[MeshGroupConfig] = None):
+                 config: Optional[MeshGroupConfig] = None, *,
+                 full_shapes: Optional[bool] = None):
         if mesh is None:
             mesh = make_broker_mesh()
         self.mesh = mesh
@@ -185,7 +189,8 @@ class MeshGroup:
         c = self.config
         B = self.num_shards = mesh.size
         # every step at full shapes, traffic or not (see _snapshot)
-        self.lockstep = mesh.spans_processes
+        self.lockstep = (mesh.spans_processes if full_shapes is None
+                         else full_shapes)
         self.step_fn = MeshLaneStep(
             mesh, gather_bytes=c.gather_frame_bytes,
             fused=c.fused_collective)
@@ -396,10 +401,11 @@ class MeshGroup:
         group's pump this runs on the event loop, where the observer
         hooks run.
 
-        A ``lockstep`` group (one whose mesh spans processes, where every
-        process must enter the same collectives with the same shapes
-        every tick, whatever it has staged) always steps, at full shapes
-        and over the whole mirrors."""
+        A ``lockstep`` group (``full_shapes``: by default one whose mesh
+        spans processes, where every process must enter the same
+        collectives with the same shapes every tick, whatever it has
+        staged) always steps, at full shapes and over the whole
+        mirrors."""
         c = self.config
         lockstep = self.lockstep
         if not (lockstep or self._state_dirty or self._staged_total()):
@@ -699,8 +705,9 @@ class MeshBrokerGroup(MeshGroup):
     so a shard with no broker receives nothing."""
 
     def __init__(self, mesh: Optional[BrokerMesh] = None,
-                 config: Optional[MeshGroupConfig] = None):
-        super().__init__(mesh, config)
+                 config: Optional[MeshGroupConfig] = None, *,
+                 full_shapes: Optional[bool] = None):
+        super().__init__(mesh, config, full_shapes=full_shapes)
         self.brokers: List[Optional["Broker"]] = [None] * self.num_shards
         self._liveness[:] = False
         self._member_idents: Optional[set] = None

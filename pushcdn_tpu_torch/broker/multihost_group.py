@@ -36,15 +36,20 @@ Failure: the group fails closed on the CPU and on the card alike, as the
 JAX group does. There is no cross-process fallback plane: a failed or
 timed-out collective (``collective_timeout_s``, the watchdog) or a failed
 step logs, disables the group (staging answers INELIGIBLE, the host
-path), logs the staged frames it strands and ends the pump; the brokers
-go on serving their own users on the host path. On the card a warm-up
-that fails raises out of every member's ``Broker.start()``.
+path), logs the staged frames it strands and ends the pump. On the CPU
+the brokers then go on serving their own users on the host path, as the
+JAX group's do. On the card the pump ends with the failure's exception
+and every local member broker goes down with it, as the port's other
+planes do there; a warm-up that fails raises out of every member's
+``Broker.start()``. A peer process that retires cleanly ends the pump
+without an exception, and the brokers keep serving.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional
@@ -108,19 +113,14 @@ class PartitionedUserSlots(UserSlots):
 
 
 class MultiHostShardPlane(MeshShardPlane):
-    """A member broker's facade on a multi-process group. The broker does
-    not supervise the lockstep pump: a failed collective fails the group
-    closed on its own (logged, disabled, pump ended) and the broker goes
-    on serving its users on the host path, as the JAX group's brokers
-    do. A failed warm-up still raises out of ``start()``."""
+    """A member broker's facade on a multi-process group. On the card the
+    broker supervises the lockstep pump as it does the one-process
+    group's: a pump that ends with an exception takes the broker down. A
+    pump that ends cleanly (a peer process retired) leaves it serving."""
 
-    async def start(self) -> None:
-        await self.group.ensure_started()
-
-    @property
-    def fails_open(self) -> bool:
-        # read by Broker.start: no pump task to supervise (see above)
-        return True
+    async def _watch_pump(self) -> None:
+        await asyncio.shield(self.group.pump_task)
+        await asyncio.Event().wait()   # a clean end: keep serving
 
 
 class MultiHostBrokerGroup(MeshBrokerGroup):
@@ -134,10 +134,11 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
     def __init__(self, mesh, config: Optional[MeshGroupConfig] = None,
                  discovery=None, directory_refresh_s: float = 0.5,
                  collective_timeout_s: Optional[float] = None):
-        config = config or MeshGroupConfig()
-        config.gather_frame_bytes = True  # bytes must cross processes
-        super().__init__(mesh, config)
-        self.lockstep = True
+        # bytes must cross processes
+        config = dataclasses.replace(config or MeshGroupConfig(),
+                                     gather_frame_bytes=True)
+        # the lockstep pump steps at full shapes in any world size
+        super().__init__(mesh, config, full_shapes=True)
         self.local_shards = local_shard_indices(mesh)
         self.slots = PartitionedUserSlots(
             config.num_user_slots, self.num_shards, self.local_shards)
@@ -158,12 +159,18 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
         self.collective_timeout_s = (
             collective_timeout_s if collective_timeout_s is not None
             else mesh.timeout_s or COLLECTIVE_TIMEOUT_S)
-        # per pump step: (host staging s, collective s) of the exchange;
-        # per tick: the stop barrier's seconds on the loop (the wait for
-        # the slowest process included)
+        # per pump step: (staging s, collective s) of the exchange; per
+        # tick: the stop barrier's seconds on the loop (the wait for the
+        # slowest process included) and how late the pump's window sleep
+        # returned (the event loop's other work); per directory refresh:
+        # (publish s, read s), both on the loop
         self.recent_exchange: collections.deque = collections.deque(
             maxlen=4096)
         self.recent_barrier: collections.deque = collections.deque(
+            maxlen=4096)
+        self.recent_wake_lag: collections.deque = collections.deque(
+            maxlen=4096)
+        self.recent_directory: collections.deque = collections.deque(
             maxlen=4096)
 
     # ---- collective stop barrier ----------------------------------------
@@ -244,11 +251,13 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
         ttl = max(4 * self.directory_refresh_s, 2.0)
         while True:
             try:
+                t0 = time.perf_counter()
                 entries = {pk: (self.slots.slot_of(pk), ts)
                            for pk, ts in self._local_claim_ts.items()
                            if self.slots.slot_of(pk) is not None}
                 if entries:
                     await self.discovery.publish_user_slots(entries, ttl)
+                t1 = time.perf_counter()
                 all_slots = await self.discovery.get_user_slots()
                 remote = {}
                 for pk, (slot, ts) in all_slots.items():
@@ -275,6 +284,8 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
                             broker.connections.remove_user(
                                 pk, reason="user connected elsewhere")
                 self._remote_slots = remote
+                self.recent_directory.append(
+                    (t1 - t0, time.perf_counter() - t1))
             except asyncio.CancelledError:
                 raise
             except Exception:
@@ -354,8 +365,10 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
     async def _pump(self) -> None:
         c = self.config
         while True:
+            ts = time.perf_counter()
             await asyncio.sleep(c.batch_window_s)
             tb = time.perf_counter()
+            self.recent_wake_lag.append(tb - ts - c.batch_window_s)
             try:
                 stop = await asyncio.wait_for(
                     asyncio.to_thread(self._collective_stop,
@@ -368,6 +381,8 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
                     "timed out" if isinstance(exc, asyncio.TimeoutError)
                     else f"failed ({exc!r})", self.collective_timeout_s)
                 self._fail_group("stop-barrier failure")
+                if not self.fails_open:
+                    raise   # on the card: every member broker goes down
                 return
             self.recent_barrier.append(time.perf_counter() - tb)
             if stop:
@@ -412,6 +427,8 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
                     "watchdog: peer process dead or wedged; group disabled",
                     self.collective_timeout_s)
                 self._fail_group("step watchdog breach", snap)
+                if not self.fails_open:
+                    raise
                 return
             except Exception:
                 logger.exception("multi-host step failed; group disabled "
@@ -425,6 +442,8 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
                         timeout=self.collective_timeout_s)
                 except Exception:
                     pass
+                if not self.fails_open:
+                    raise   # the step's exception
                 return
             finally:
                 self._free_quarantined(snap)

@@ -52,16 +52,13 @@ class BrokerMesh:
     """The broker-shard axis: one device per shard, in mesh order. On a
     mesh that spans processes, ``ranks[i]`` is shard ``i``'s process,
     ``devices[i]`` is None unless that process is this one (``rank``),
-    ``group`` is the process group of the exchange (``timeout_s`` bounds
-    each of its collectives) and ``stage_host`` says whether the exchange
-    copies CUDA rows through host memory (a backend that does not take
-    CUDA tensors)."""
+    and ``group`` is the process group of the exchange (``timeout_s``
+    bounds each of its collectives)."""
 
     devices: Tuple[Optional[torch.device], ...]
     ranks: Optional[Tuple[int, ...]] = None
     rank: int = 0
     group: Any = field(default=None, compare=False)
-    stage_host: bool = False
     timeout_s: Optional[float] = None
 
     @property

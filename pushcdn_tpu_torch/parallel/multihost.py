@@ -28,11 +28,10 @@ Backend: the world group that :func:`initialize` joins is gloo (it runs
 the object exchange of :func:`pod_broker_mesh`). The exchange group is
 picked by topology in :func:`pod_broker_mesh` and logged: NCCL when every
 rank's shards sit on CUDA cards that no other rank uses, gloo otherwise
-(on the CPU, and for several ranks on one card). Where gloo does not take
-CUDA tensors, the exchange copies the rows through host memory
-(``BrokerMesh.stage_host``): on one card that copy is the cross-process
-transport. The exchange group's timeout bounds every collective, so a
-collective with a dead or stalled peer raises within it.
+(on the CPU, and for several ranks on one card, where gloo takes the CUDA
+tensors and copies them through host memory itself). The exchange
+group's timeout bounds every collective, so a collective with a dead or
+stalled peer raises within it.
 """
 
 from __future__ import annotations
@@ -123,24 +122,6 @@ def _card_id(dev: torch.device) -> Optional[str]:
     return f"{socket.gethostname()}/{uuid if uuid is not None else dev.index}"
 
 
-def _gloo_takes_cuda(group, dev: torch.device) -> bool:
-    """Whether gloo's all_gather takes a CUDA tensor here; every rank
-    runs the probe and all agree on the answer (the minimum)."""
-    dist = _dist()
-    ok = 1
-    try:
-        x = torch.zeros(2, dtype=torch.int32, device=dev)
-        out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(out, x, group=group)
-        torch.cuda.synchronize(dev)
-    except (RuntimeError, ValueError, NotImplementedError) as exc:
-        logger.info("gloo refuses CUDA tensors (%s)", str(exc)[:200])
-        ok = 0
-    flag = torch.tensor([ok], dtype=torch.int32)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-    return bool(flag.item())
-
-
 def choose_backend(devices_by_rank: Sequence[Sequence[Optional[str]]]
                    ) -> str:
     """The exchange backend for the ranks' devices (card ids, None for a
@@ -208,17 +189,13 @@ def pod_broker_mesh(num_brokers: Optional[int] = None,
     group = dist.new_group(backend=backend,
                            timeout=datetime.timedelta(seconds=timeout_s))
     local = devs[:ranks.count(me)]
-    stage_host = False
-    if backend == "gloo" and any(d.type == "cuda" for d in local):
-        stage_host = not _gloo_takes_cuda(group, local[0])
     it = iter(local)
     devices = tuple(next(it) if r == me else None for r in ranks)
     logger.info("pod broker mesh: %d shards over %d processes, local %s, "
-                "exchange over %s%s", len(ranks), world,
-                [str(d) for d in local], backend,
-                " staged through host memory" if stage_host else "")
+                "exchange over %s", len(ranks), world,
+                [str(d) for d in local], backend)
     return BrokerMesh(devices, ranks=tuple(ranks), rank=me, group=group,
-                      stage_host=stage_host, timeout_s=timeout_s)
+                      timeout_s=timeout_s)
 
 
 def local_shard_indices(mesh: BrokerMesh) -> List[int]:
@@ -242,8 +219,6 @@ def exchange_transport(mesh: BrokerMesh) -> str:
     if not mesh.spans_processes:
         return "in-process copies"
     backend = _dist().get_backend(mesh.group)
-    if mesh.stage_host:
-        return f"{backend}, CUDA rows staged through host memory"
     if any(d.type == "cuda" for d in mesh.distinct_devices()):
         return f"{backend}, CUDA tensors"
     return f"{backend}, CPU tensors"

@@ -29,8 +29,7 @@ between the shards' devices (``Tensor.to``): on one card folded into
 several shards it is device-to-device copies, not interconnect traffic.
 On a mesh that spans processes each process passes only its local
 shards' rows, and one collective of the mesh's ``torch.distributed``
-process group moves them (through host memory where the backend does
-not take CUDA tensors, ``BrokerMesh.stage_host``).
+process group moves them.
 """
 
 from __future__ import annotations
@@ -82,9 +81,10 @@ def set_delivery_impl(impl: str) -> None:
 
 _COLLECTIVES = [0]
 
-# Seconds spent by cross-process exchanges so far in this process:
-# copying rows between the card and host memory around the collective
-# (``stage``), and in the process group's collective itself.
+# Seconds spent by cross-process exchanges so far in this process: in
+# staging (stacking and padding the local rows before the collective,
+# unpadding the gathered rows and moving them to each local device after
+# it; ``stage``), and in the process group's collective itself.
 _EXCHANGE_SECONDS = {"stage": 0.0, "collective": 0.0}
 
 
@@ -95,7 +95,10 @@ def trace_collectives() -> int:
 
 def exchange_seconds() -> dict:
     """Cross-process exchange time so far in this process, split into
-    host staging and the collective (diff around a step)."""
+    staging and the collective (diff around a step). On the card the
+    staging before the collective holds its device time (it is waited
+    for); the part after is enqueue time, and gloo's copy of the rows
+    back to the card ends inside the step's readback."""
     return dict(_EXCHANGE_SECONDS)
 
 
@@ -109,8 +112,7 @@ def _gather_across(xs: Sequence[torch.Tensor],
     import torch.distributed as dist
 
     t0 = time.perf_counter()
-    home = torch.device("cpu") if mesh.stage_host else xs[0].device
-    local = torch.stack([x.to(home) for x in xs])
+    local = torch.stack([x.to(xs[0].device) for x in xs])
     as_bool = local.dtype == torch.bool   # moved as bytes
     if as_bool:
         local = local.view(torch.uint8)
@@ -121,6 +123,10 @@ def _gather_across(xs: Sequence[torch.Tensor],
         local = torch.cat([local, local.new_zeros(
             (width - local.shape[0],) + tuple(local.shape[1:]))])
     out = local.new_empty((len(per),) + tuple(local.shape))
+    if local.is_cuda:
+        # the stack runs asynchronously on the card: wait for it here,
+        # as gloo's own copy to the host would, so the split holds it
+        torch.cuda.synchronize(local.device)
     t1 = time.perf_counter()
     dist.all_gather(list(out.unbind(0)), local, group=mesh.group)
     t2 = time.perf_counter()

@@ -5,7 +5,8 @@
         [--device cuda:0]
 
 Every process builds the global mesh (its share of the plan's shards
-folded onto ``--device``), one ``MultiHostBrokerGroup`` over it with the plan's
+folded onto ``--device``, the card unless it names another, raising
+without CUDA), one ``MultiHostBrokerGroup`` over it with the plan's
 ``MeshGroupConfig`` and a ``Broker`` on each local shard (Memory
 transport, no host links), and injects the plan's users of its shards
 over the Memory transport as the test harness does (user ``uid`` on
@@ -83,13 +84,16 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
     group = MultiHostBrokerGroup(
         mesh, MeshGroupConfig(**plan["config"]),
         discovery=await Embedded.new(plan["db"]), directory_refresh_s=0.25)
-    counts = []   # collectives of every step
+    # every step's (collectives, dense launches, end time), appended when
+    # it ends, so a window's entries are whole steps
+    counts = []
     step = group.step_fn
 
     def counted(*args):
-        before = trace_collectives()
+        before, launched = trace_collectives(), dk.LAUNCHES
         out = step(*args)
-        counts.append(trace_collectives() - before)
+        counts.append((trace_collectives() - before, dk.LAUNCHES - launched,
+                       time.perf_counter()))
         return out
     group.step_fn = counted
 
@@ -157,11 +161,10 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
     await barrier(out_dir, "ready", rank, world)
 
     rows = []
-    steps0, recent0 = group.steps, len(group.recent_steps)
+    recent0 = len(group.recent_steps)
     exchange0 = len(group.recent_exchange)
     barrier0 = len(group.recent_barrier)
-    launches0, routed0, counts0 = dk.LAUNCHES, group.messages_routed, \
-        len(counts)
+    routed0, counts0 = group.messages_routed, len(counts)
     current = plan["first"]
     for i, burst in enumerate(plan["bursts"]):
         if burst["popularity"] != current:
@@ -190,24 +193,29 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
         await barrier(out_dir, f"burst{i}-done", rank, world)
     await asyncio.sleep(0.2)   # a duplicate or a stray frame lands here
     busy = dict(
-        steps=group.steps - steps0,
+        steps=len(counts) - counts0,
         recent_steps=[tuple(s) for s in list(group.recent_steps)[recent0:]],
         exchange=list(group.recent_exchange)[exchange0:],
         barrier=list(group.recent_barrier)[barrier0:],
-        collectives=counts[counts0:],
-        launches=dk.LAUNCHES - launches0,
+        collectives=[c for c, _, _ in counts[counts0:]],
+        launches_per_step=[n for _, n, _ in counts[counts0:]],
         routed=group.messages_routed - routed0)
-    # the idle lockstep tick: steps over one quiet second
-    idle0, t_idle = group.steps, time.perf_counter()
+    # the idle lockstep tick: the mean interval between the steps that
+    # end in one quiet second
+    idle0 = len(counts)
     recent1, exchange1 = len(group.recent_steps), len(group.recent_exchange)
-    barrier1 = len(group.recent_barrier)
+    barrier1, wake1 = len(group.recent_barrier), len(group.recent_wake_lag)
+    directory1 = len(group.recent_directory)
     await asyncio.sleep(1.0)
-    idle = dict(steps=group.steps - idle0,
-                seconds=time.perf_counter() - t_idle,
+    ends = [t for _, _, t in counts[idle0:]]
+    idle = dict(steps=max(len(ends) - 1, 0),
+                seconds=ends[-1] - ends[0] if ends else 0.0,
                 recent_steps=[tuple(s) for s in
                               list(group.recent_steps)[recent1:]],
                 exchange=list(group.recent_exchange)[exchange1:],
-                barrier=list(group.recent_barrier)[barrier1:])
+                barrier=list(group.recent_barrier)[barrier1:],
+                wake_lag=list(group.recent_wake_lag)[wake1:],
+                directory=list(group.recent_directory)[directory1:])
     host_links = [b.connections.num_brokers for b in brokers.values()]
     disabled = group.disabled
     for t in drains:
@@ -233,19 +241,22 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("plan")
     p.add_argument("out_dir")
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default=None,
+                   help="the local shards' device (default: CUDA)")
     own = p.parse_args(args.rest)
 
+    from pushcdn_tpu_torch._device import resolve_device
     from pushcdn_tpu_torch.parallel.multihost import (
         initialize,
         pod_broker_mesh,
     )
+    device = resolve_device(own.device)   # before the join: fail alone
     with open(own.plan, "rb") as f:
         plan = pickle.load(f)
     initialize(args.init, args.world, args.rank)
     shards = plan["shards"]
     mesh = pod_broker_mesh(
-        shards, local_devices=[own.device] * -(-shards // args.world))
+        shards, local_devices=[device] * -(-shards // args.world))
     out = asyncio.run(serve(plan, own.out_dir, args.rank, args.world, mesh))
     with open(os.path.join(own.out_dir, f"rank{args.rank}.pkl"), "wb") as f:
         pickle.dump(out, f)

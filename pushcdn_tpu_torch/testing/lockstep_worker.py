@@ -3,11 +3,12 @@ lockstep, socket-free.
 
     python -m pushcdn_tpu_torch.testing.lockstep_worker \\
         --rank R --world 2 --init file:///tmp/rdv <mode> <out_dir> <input>... \\
-        [--device cpu] [--stage-host]
+        [--device cpu]
 
 Both processes join the process group, build the same global mesh of
 the inputs' shard count (each offering ceil(shards / world) local
-shards folded onto ``--device``, so the last process may hold fewer) and
+shards folded onto ``--device``, so the last process may hold fewer;
+the card unless ``--device`` names another, raising without CUDA) and
 run the same steps collectively. Every input has the same shard count.
 Modes:
 
@@ -24,9 +25,6 @@ Modes:
   would carry them), stages its shards' items and calls ``step()`` once
   a tick; every tick's deliveries and timings go to
   ``<out_dir>/rank<R>-<i>.pkl``.
-
-``--stage-host`` makes the exchange copy its rows through host memory,
-as it does on a card whose gloo refuses CUDA tensors.
 
 The parent compares the outputs with a reference (the JAX package's
 step in the tests, an oracle and the one-process group in
@@ -232,18 +230,18 @@ def main(argv=None) -> int:
     p.add_argument("mode", choices=("lane", "group"))
     p.add_argument("out_dir")
     p.add_argument("inputs", nargs="+")
-    p.add_argument("--device", default="cpu")
-    p.add_argument("--stage-host", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="the local shards' device (default: CUDA)")
     own = p.parse_args(args.rest)
-
-    import dataclasses
 
     import torch.distributed as dist
 
+    from pushcdn_tpu_torch._device import resolve_device
     from pushcdn_tpu_torch.parallel.multihost import (
         initialize,
         pod_broker_mesh,
     )
+    device = resolve_device(own.device)   # before the join: fail alone
     initialize(args.init, args.world, args.rank)
     if own.mode == "lane":
         shards = len(np.load(own.inputs[0])["owners"])
@@ -251,9 +249,7 @@ def main(argv=None) -> int:
         with open(own.inputs[0], "rb") as f:
             shards = pickle.load(f)["shards"]
     mesh = pod_broker_mesh(
-        shards, local_devices=[own.device] * -(-shards // args.world))
-    if own.stage_host:
-        mesh = dataclasses.replace(mesh, stage_host=True)
+        shards, local_devices=[device] * -(-shards // args.world))
     run = run_lane if own.mode == "lane" else run_group
     for i, inputs in enumerate(own.inputs):
         run(mesh, inputs, own.out_dir, f"rank{args.rank}-{i}")

@@ -24,6 +24,7 @@ import sys
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+from pushcdn_tpu_torch._device import DeviceLike, resolve_device
 from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
 from pushcdn_tpu_torch.broker.mesh_group import MeshGroupConfig
 from pushcdn_tpu_torch.broker.multihost_group import MultiHostBrokerGroup
@@ -101,13 +102,17 @@ class TwoHostNode:
 async def make_two_host_node(rank: int, db: str, *,
                              client_seeds: Sequence[int],
                              broker_seed_base: int,
+                             device: DeviceLike = None,
                              mesh_config: Optional[MeshGroupConfig] = None,
                              directory_refresh_s: float = 0.2,
                              collective_timeout_s: float = 20.0
                              ) -> TwoHostNode:
-    """Build this process's half of the deployment, its shards on the
-    CPU, and authenticate its client (subscribed to topic 0)."""
-    mesh = pod_broker_mesh(N_SHARDS, local_devices=["cpu"] * LOCAL_SHARDS,
+    """Build this process's half of the deployment, its shards folded
+    onto ``device`` (the card unless the caller names another, raising
+    without CUDA), and authenticate its client (subscribed to topic 0)."""
+    mesh = pod_broker_mesh(N_SHARDS,
+                           local_devices=[resolve_device(device)]
+                           * LOCAL_SHARDS,
                            timeout_s=collective_timeout_s)
     my_shard = local_shard_indices(mesh)[0]
     rd = testing_run_def(broker_protocol=Tcp, user_protocol=Tcp)

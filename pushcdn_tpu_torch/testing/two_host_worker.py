@@ -3,7 +3,7 @@
 
     python -m pushcdn_tpu_torch.testing.two_host_worker \\
         --rank R --world 2 --init file:///tmp/rdv <mode> <db> <tmp_dir> \\
-        [--watchdog 20]
+        [--watchdog 20] [--device cpu]
 
 Modes:
 
@@ -26,6 +26,10 @@ Modes:
   group closed within ``--watchdog`` seconds, the halt log counting that
   stranded frame, and rank 0 serves on and exits. Prints
   ``rank 0: STALL OK``.
+
+The shards sit on ``--device`` (the card unless it names another). The
+``kill`` and ``stall`` survivors serve on, which is the CPU's rule: on
+the card a failed group takes its brokers down instead.
 
 Each worker exits through ``asyncio.run``'s normal shutdown (a collective
 stuck on a dead peer ends within the mesh group's timeout), so the
@@ -226,7 +230,8 @@ async def amain(args, own) -> None:
         direct_bucket_slots=4, batch_window_s=0.02)
     node = await make_two_host_node(
         args.rank, own.db, client_seeds=CLIENT_SEEDS[own.mode],
-        broker_seed_base=BROKER_SEEDS[own.mode], mesh_config=config,
+        broker_seed_base=BROKER_SEEDS[own.mode], device=own.device,
+        mesh_config=config,
         collective_timeout_s=own.watchdog)
     if own.mode == "deploy":
         await deploy(node, args.rank)
@@ -242,11 +247,15 @@ def main(argv=None) -> int:
     p.add_argument("db")
     p.add_argument("tmp")
     p.add_argument("--watchdog", type=float, default=20.0)
+    p.add_argument("--device", default=None,
+                   help="the local shards' device (default: CUDA)")
     own = p.parse_args(args.rest)
     logging.basicConfig(level=logging.WARNING, stream=sys.stdout,
                         format="%(asctime)s %(name)s %(message)s")
 
+    from pushcdn_tpu_torch._device import resolve_device
     from pushcdn_tpu_torch.parallel.multihost import initialize
+    own.device = resolve_device(own.device)   # before the join: fail alone
     initialize(args.init, args.world, args.rank)
     asyncio.run(amain(args, own))
     return 0

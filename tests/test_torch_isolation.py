@@ -296,7 +296,7 @@ def test_two_process_workers_run_with_jax_and_reference_blocked(tmp_path):
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, module, "--rank", str(rank),
          "--init", f"file://{tmp_path}/rendezvous", "lane",
-         str(tmp_path), str(tmp_path / "case.npz")],
+         str(tmp_path), str(tmp_path / "case.npz"), "--device", "cpu"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for rank in (0, 1)]
     try:

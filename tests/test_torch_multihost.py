@@ -13,8 +13,13 @@ be bit-identical to JAX's (tolerance 0), under both schedules and both
 popularities, and on a 7-shard mesh whose second process holds one
 shard fewer; claims seeded only on the other process's shards must
 converge; a fused tick counts one collective, a per-array tick as many
-as JAX's per-array step issues.
+as JAX's per-array step issues. The workers run on the card unless
+given ``--device``.
 """
+
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +47,7 @@ CASES = {"uniform": ("uniform", 8), "zipf": ("zipf", 8),
          "uniform-7-shards": ("uniform", 7)}
 SCHEDULES = ("fused", "per-array")
 K = 8   # user slots per shard in lane_step_case
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_single_host_owns_all_shards():
@@ -94,7 +100,8 @@ def lane_runs(tmp_path_factory):
         procs.append(spawn_worker_pair(
             "pushcdn_tpu_torch.testing.lockstep_worker",
             f"file://{d}/rendezvous",
-            ["lane", str(d), str(d / "case.npz")], log_dir=str(d)))
+            ["lane", str(d), str(d / "case.npz"), "--device", "cpu"],
+            log_dir=str(d)))
     try:
         for pair in procs:
             for p in pair:
@@ -166,29 +173,22 @@ def test_two_process_lane_step_matches_jax(lane_runs, name, schedule):
 
 
 
-def test_two_process_lane_step_staged_through_host(lane_runs, tmp_path):
-    """The exchange staged through host memory (what it does where gloo
-    refuses CUDA tensors) gives the same rows as the direct one: the same
-    case, bit for bit, under both schedules."""
-    case, d = lane_runs["uniform"]
-    procs = spawn_worker_pair(
-        "pushcdn_tpu_torch.testing.lockstep_worker",
-        f"file://{tmp_path}/rendezvous",
-        ["lane", str(tmp_path), str(d / "case.npz"), "--stage-host"],
-        log_dir=str(tmp_path))
-    try:
-        for p in procs:
-            p.wait(timeout=50)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank in (0, 1):
-        log = (tmp_path / f"rank{rank}.log").read_text()
-        assert f"rank {rank}: LOCKSTEP OK" in log, log[-3000:]
-        for schedule in SCHEDULES:
-            name = f"rank{rank}-0-{schedule}.npz"
-            staged, direct = np.load(tmp_path / name), np.load(d / name)
-            assert sorted(staged.files) == sorted(direct.files)
-            for f in direct.files:
-                np.testing.assert_array_equal(staged[f], direct[f])
+@pytest.mark.parametrize("module", ["lockstep_worker", "burst_worker",
+                                    "two_host_worker"])
+def test_workers_run_on_the_card_unless_asked(module, tmp_path):
+    """A worker given no ``--device`` runs on CUDA: with CUDA hidden it
+    exits non-zero, naming CUDA, before it joins its peer."""
+    args = {"lockstep_worker": ["lane", str(tmp_path), "case.npz"],
+            "burst_worker": ["plan.pkl", str(tmp_path)],
+            "two_host_worker": ["deploy", "d.sqlite", str(tmp_path)]}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    out = subprocess.run(
+        [sys.executable, "-m", f"pushcdn_tpu_torch.testing.{module}",
+         "--rank", "0", "--world", "2",
+         "--init", f"file://{tmp_path}/rendezvous", *args[module]],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr[-2000:]

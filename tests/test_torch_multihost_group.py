@@ -15,8 +15,10 @@
   killed and a stalled peer (the twins of the kill and stall tests), the
   survivor failing closed within its watchdog, logging its stranded
   frames, serving on and exiting within a stated bound;
-- on the card only: a group whose warm-up fails raises out of every
-  member's ``Broker.start()``.
+- on the card (and on the CPU with the group set not to fail open): a
+  group whose warm-up fails raises out of every member's
+  ``Broker.start()``, and one whose step fails after the warm-up takes
+  every member broker down.
 """
 
 import asyncio
@@ -344,7 +346,7 @@ def test_lockstep_snapshot_keeps_full_shapes():
     staged (every process must enter the same collectives with the same
     shapes): its snapshot is never None, never latency-sliced, and holds
     the whole mirrors; the one-process MeshGroup skips an idle tick and
-    slices a small one."""
+    slices a small one, unless it is built with ``full_shapes``."""
     p = _pkg("port")
 
     def cfg():
@@ -354,8 +356,10 @@ def test_lockstep_snapshot_keeps_full_shapes():
             latency_slots=2)
     group = p.mhg.MultiHostBrokerGroup(p.mesh(4), cfg())
     plain = p.mg.MeshGroup(p.mesh(4), cfg())
-    assert group.lockstep and not plain.lockstep
+    full = p.mg.MeshGroup(p.mesh(4), cfg(), full_shapes=True)
+    assert group.lockstep and full.lockstep and not plain.lockstep
     assert plain._snapshot() is None
+    assert full._snapshot() is not None
     for g in (group, plain):
         g.claim_user(0, b"u", [1])
         p.mg.MeshGroup.stage_batch(g, 0, [(5, b"x", [1])])
@@ -429,7 +433,8 @@ def test_two_process_lockstep_group_matches_one_process(tmp_path):
     procs = spawn_worker_pair(
         "pushcdn_tpu_torch.testing.lockstep_worker",
         f"file://{tmp_path}/rendezvous",
-        ["group", str(tmp_path), str(script)], log_dir=str(tmp_path))
+        ["group", str(tmp_path), str(script), "--device", "cpu"],
+        log_dir=str(tmp_path))
     logs = _wait_pair(procs, [tmp_path / f"rank{r}.log" for r in (0, 1)])
     for rank, log in enumerate(logs):
         assert f"rank {rank}: LOCKSTEP OK" in log, log[-3000:]
@@ -469,7 +474,8 @@ def test_two_process_deployment(tmp_path):
     procs = spawn_worker_pair(
         "pushcdn_tpu_torch.testing.two_host_worker",
         f"file://{tmp_path}/rendezvous",
-        ["deploy", str(tmp_path / "d.sqlite"), str(tmp_path)],
+        ["deploy", str(tmp_path / "d.sqlite"), str(tmp_path),
+         "--device", "cpu"],
         log_dir=str(tmp_path))
     logs = _wait_pair(procs, [tmp_path / f"rank{r}.log" for r in (0, 1)])
     for rank, (p, log) in enumerate(zip(procs, logs)):
@@ -488,7 +494,8 @@ def test_two_process_fault_fails_closed(tmp_path, fault):
         "pushcdn_tpu_torch.testing.two_host_worker",
         f"file://{tmp_path}/rendezvous",
         [fault, str(tmp_path / "d.sqlite"), str(tmp_path),
-         "--watchdog", str(WATCHDOG_S)], log_dir=str(tmp_path))
+         "--watchdog", str(WATCHDOG_S), "--device", "cpu"],
+        log_dir=str(tmp_path))
     logs = [tmp_path / f"rank{r}.log" for r in (0, 1)]
     try:
         deadline = time.monotonic() + PAIR_TIMEOUT_S
@@ -533,9 +540,9 @@ def _boom(*args, **kwargs):
     raise RuntimeError("injected step failure")
 
 
-async def _warmup_fails_in_every_member(devices, db: str):
-    """Two brokers on a group over ``devices`` whose warm-up step fails:
-    each one's ``start()`` must raise and leave no task running."""
+async def _members(devices, db: str, **config):
+    """A MultiHostBrokerGroup over a one-process mesh of ``devices`` and
+    a Broker attached to each shard, not started."""
     from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
     from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
     from pushcdn_tpu_torch.proto.def_ import testing_run_def
@@ -545,12 +552,10 @@ async def _warmup_fails_in_every_member(devices, db: str):
     group = p.mhg.MultiHostBrokerGroup(
         mesh.make_broker_mesh(len(devices), devices=devices),
         p.mg.MeshGroupConfig(num_user_slots=16, ring_slots=8,
-                             frame_bytes=512, extra_lanes=()))
-    assert not group.fails_open
-    group.step_fn = _boom
+                             frame_bytes=512, extra_lanes=(), **config))
     brokers = []
     for i in range(len(devices)):
-        name = f"mh-warm-{os.getpid()}-{id(group)}-{i}"
+        name = f"mh-{os.getpid()}-{id(group)}-{i}"
         b = await Broker.new(BrokerConfig(
             run_def=testing_run_def(),
             keypair=DEFAULT_SCHEME.generate_keypair(seed=7),
@@ -563,12 +568,65 @@ async def _warmup_fails_in_every_member(devices, db: str):
             whitelist_interval_s=3600, form_mesh=False))
         group.attach(b, i)
         brokers.append(b)
+    return group, brokers
+
+
+async def _warmup_fails_in_every_member(devices, db: str):
+    """Two brokers on a group over ``devices`` whose warm-up step fails:
+    each one's ``start()`` must raise and leave no task running."""
+    group, brokers = await _members(devices, db)
+    assert not group.fails_open
+    group.step_fn = _boom
     try:
         for b in brokers:
             with pytest.raises(RuntimeError, match="injected"):
                 await b.start()
             assert not b._tasks
         assert group.pump_task is None and not group.disabled
+    finally:
+        for b in brokers:
+            await b.stop()
+
+
+async def _pump_end_in_every_member(devices, db: str, end: str):
+    """Two started brokers on a group over ``devices`` that does not fail
+    open. ``end="step failure"``: a step fails after a good warm-up, the
+    group disables itself and every member's ``wait_until_failure``
+    raises with the step's exception. ``end="peer retired"``: the stop
+    barrier reports a retired peer, the pump ends cleanly and the members
+    keep serving."""
+    from pushcdn_tpu_torch.proto.error import Error
+
+    group, brokers = await _members(devices, db, batch_window_s=0.01)
+    assert not group.fails_open
+    try:
+        for b in brokers:
+            await b.start()
+        steps = group.steps
+        async with asyncio.timeout(10):
+            while group.steps < steps + 2:   # the lockstep pump ticks
+                await asyncio.sleep(0.01)
+        if end == "step failure":
+            group.step_fn = _boom
+        else:
+            group._collective_stop = lambda want_stop: True
+        async with asyncio.timeout(10):
+            while not group.pump_task.done():
+                await asyncio.sleep(0.01)
+        assert group.disabled
+        if end == "step failure":
+            for b in brokers:
+                with pytest.raises(Error, match="injected step failure"):
+                    async with asyncio.timeout(10):
+                        await b.wait_until_failure()
+        else:
+            waits = [asyncio.ensure_future(b.wait_until_failure())
+                     for b in brokers]
+            done, _ = await asyncio.wait(waits, timeout=0.5)
+            assert not done   # no member went down
+            for w in waits:
+                w.cancel()
+            await asyncio.gather(*waits, return_exceptions=True)
     finally:
         for b in brokers:
             await b.stop()
@@ -585,6 +643,30 @@ def test_group_warmup_failure_raises_in_every_member_when_failing_closed(
         ["cpu"] * 2, str(tmp_path / "d.sqlite")))
 
 
+@pytest.mark.parametrize("end", ["step failure", "peer retired"])
+def test_group_pump_end_in_every_member_when_failing_closed(
+        tmp_path, monkeypatch, end):
+    """The pump rule the card follows, on the CPU: with the group set not
+    to fail open, a step that fails after the warm-up takes every member
+    broker down with its exception, and a peer's clean retirement takes
+    none down."""
+    p = _pkg("port")
+    monkeypatch.setattr(p.mhg.MultiHostBrokerGroup, "fails_open", False)
+    asyncio.run(_pump_end_in_every_member(
+        ["cpu"] * 2, str(tmp_path / "d.sqlite"), end))
+
+
+def test_group_config_is_copied_not_mutated():
+    """The group forces ``gather_frame_bytes`` on its own copy of the
+    caller's config, and steps at full shapes in any world size."""
+    p = _pkg("port")
+    cfg = p.mg.MeshGroupConfig(num_user_slots=16, ring_slots=8,
+                               frame_bytes=512, extra_lanes=())
+    group = p.mhg.MultiHostBrokerGroup(p.mesh(2), cfg)
+    assert not cfg.gather_frame_bytes and group.config.gather_frame_bytes
+    assert group.lockstep and group.config.ring_slots == 8
+
+
 @pytest.mark.cuda
 def test_group_warmup_failure_raises_in_every_member_on_the_card(tmp_path):
     """A group on the card whose warm-up step fails (a kernel that does
@@ -593,3 +675,14 @@ def test_group_warmup_failure_raises_in_every_member_on_the_card(tmp_path):
         pytest.skip("needs an NVIDIA GPU with CUDA")
     asyncio.run(_warmup_fails_in_every_member(
         ["cuda:0"] * 2, str(tmp_path / "d.sqlite")))
+
+
+@pytest.mark.cuda
+def test_group_step_failure_ends_every_member_on_the_card(tmp_path):
+    """A group on the card whose step fails after the warm-up (a kernel
+    launch error, a device fault) takes every member broker down with the
+    step's exception; it does not go on serving on the host path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    asyncio.run(_pump_end_in_every_member(
+        ["cuda:0"] * 2, str(tmp_path / "d.sqlite"), "step failure"))
