@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
 1. device — requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them, and the torch and CUDA versions;
-2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc;
+2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc and,
+   beside them, the native host routines from
+   ``pushcdn_tpu_torch/native/*.cpp`` with g++ (each one's seconds);
 3. kernels vs plain — each CUDA kernel against its plain PyTorch version
    on the card, bit for bit, at edge shapes (the cases of
    ``pushcdn_tpu_torch/testing/kernel_cases.py``) and the main path's
@@ -60,7 +62,9 @@ Phases, each printing one JSON line:
    path on the same machine). Each run must deliver exactly the scalar
    oracle's frames to every user, in publisher order within each lane,
    route every delivery on the plane (``messages_routed``) without
-   disabling it, and launch its kernel; one ``broker`` line per run;
+   disabling it, and launch its kernel; a dense run must egress every
+   busy step through ``native.egress_encode`` (``native_egress_steps``
+   equal to ``busy_steps``); one ``broker`` line per run;
 9. the cluster as processes, started as the README's quick start starts
    it: ``python -m pushcdn_tpu_torch.bin.marshal`` and ``python -m
    pushcdn_tpu_torch.bin.broker --device-plane`` as child processes on a
@@ -76,8 +80,10 @@ Phases, each printing one JSON line:
    exactly the oracle's frames (as a multiset: the plane's idle bypass
    sends some frames by the host path), a plane run's ``/metrics`` must
    show ``cdn_device_messages_routed`` > 0 and its broker's exit line
-   launches of its kernel after the warm-up (none for the host path), and
-   both children must exit 0 on SIGTERM; one ``cluster`` line per run;
+   launches of its kernel after the warm-up (none for the host path), its
+   exit line the native host routines loaded and, on the dense run, every
+   busy step egressed natively, and both children must exit 0 on SIGTERM;
+   one ``cluster`` line per run;
 10. four broker shards serving users through the mesh group — phase 6's
    shape in brokers: a ``MeshBrokerGroup`` on the 4 shards folded onto the
    card (4096 user slots, 512 x 2048 B base-lane slots and the (16384,
@@ -96,8 +102,9 @@ Phases, each printing one JSON line:
    broadcast and direct each arriving exactly once. Each run's deliveries
    must equal the scalar oracle's (as a multiset, and per publisher in
    send order on each path: size lane, broadcast or direct), the group
-   must route every one without disabling itself and launch the dense
-   kernel; one ``mesh_broker`` line per run;
+   must route every one without disabling itself, launch the dense
+   kernel and egress every busy step through ``native.egress_encode``;
+   one ``mesh_broker`` line per run;
 11. the multi-host group — a global mesh of 8 shards in 2 processes, each
    folding its 4 shards onto the card, the exchange over a gloo process
    group (the phase names its transport: gloo takes the CUDA tensors), at
@@ -124,8 +131,21 @@ Phases, each printing one JSON line:
    (3) a marshal and two ``broker --mesh-shards 2 --multihost-*
    --device cuda:0`` processes, a TCP+TLS client on each: a broadcast
    crosses, a direct crosses back, no broker link, both exit 0 on
-   SIGTERM with their launches on their exit lines. Then the dense
-   kernel's time at this shape. One ``multihost`` line per run.
+   SIGTERM with their launches on their exit lines. Runs 2 and 3 must
+   egress every busy step through ``native.egress_encode``. Then the
+   dense kernel's time at this shape. One ``multihost`` line per run;
+12. the native host routines (appended after phase 11, whose number it
+   follows) at the slice's shape: on the dense kernel's own matrices of
+   phase 4 (a base-lane launch per popularity, U x 2048 frames,
+   recomputed by its plain version) and a 2048-frame burst in the slice's
+   mix, ``egress_encode`` against a plain per-user walk (``np.nonzero``
+   row-major, a 4-byte big-endian length before each frame: the wire's
+   framing), ``FrameRing.push_batch`` against its ``_put`` loop,
+   ``FrameEncoder.encode`` and ``FrameScanner.scan`` round-tripping the
+   burst against the Python prefix and scan, and ``pydecode`` against
+   ``decode_frames``'s Python loop; every result equal, both sides timed
+   on the host clock (median of repeats). One ``native`` line per
+   popularity.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -140,6 +160,7 @@ import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -1249,19 +1270,24 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
 
 def plane_stats(plane) -> dict:
     """The plane's counters and per-step medians over the pump's steps
-    (host snapshot, device step, pair extraction, egress), in ms."""
+    (host snapshot, device step, the native encode on a dense step or
+    pair extraction on a ragged one, egress), in ms."""
     if plane is None:
         return {}
     r = np.asarray(plane.recent_steps, np.float64).reshape(-1, 6)
     med = (lambda col: float(np.median(r[:, col]) * 1e3)) if len(r) \
         else (lambda col: None)
+    third = ("encode_ms_median" if plane.delivery_impl == "dense"
+             else "pair_extract_ms_median")
     return dict(
         steps=plane.steps, messages_routed=plane.messages_routed,
         ragged_steps=plane.ragged_steps,
         ragged_fallbacks=plane.ragged_fallbacks,
+        busy_steps=plane.busy_steps,
+        native_egress_steps=plane.native_egress_steps,
         frames_per_step_median=float(np.median(r[:, 4])) if len(r) else None,
         snapshot_ms_median=med(0), device_step_ms_median=med(1),
-        pair_extract_ms_median=med(2), egress_ms_median=med(3))
+        **{third: med(2)}, egress_ms_median=med(3))
 
 
 def phase_broker(device, shape: dict = BROKER):
@@ -1282,6 +1308,10 @@ def phase_broker(device, shape: dict = BROKER):
         if impl == "dense":
             check(row["delivery_matrix_cuda"] > 0, f"broker dense/{popularity}"
                   " never launched delivery_matrix_cuda")
+            check(row["native_egress_steps"] == row["busy_steps"] > 0,
+                  f"broker dense/{popularity}: {row['native_egress_steps']} "
+                  f"of {row['busy_steps']} busy steps egressed through "
+                  "native.egress_encode")
         if impl == "ragged":
             check(row["ragged_delivery_cuda"] > 0 and row["ragged_steps"] > 0,
                   f"broker ragged/{popularity} never launched "
@@ -1653,6 +1683,13 @@ async def cluster_run(impl: str, seed: int, shape: dict,
               f"{label}: the device plane disabled itself")
         check(exit_fields["delivery_impl"] == impl,
               f"{label}: the plane switched to {exit_fields['delivery_impl']}")
+    check(exit_fields["native"], f"{label}: the broker's native host "
+          "routines did not load")
+    if impl == "dense":
+        check(exit_fields["native_egress_steps"] == exit_fields["busy_steps"]
+              > 0, f"{label}: {exit_fields['native_egress_steps']} of "
+              f"{exit_fields['busy_steps']} busy steps egressed through "
+              "native.egress_encode")
     busy = sum(r["busy_s"] for r in runs.values())
     return dict(
         impl=impl,
@@ -1673,6 +1710,9 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         messages_routed=routed_metric,
         routed_share=routed_metric / (len(want) + barriers),
         steps=exit_fields.get("steps"),
+        native=exit_fields["native"],
+        busy_steps=exit_fields.get("busy_steps"),
+        native_egress_steps=exit_fields.get("native_egress_steps"),
         broker_step_ms_median=exit_fields.get("step_ms_median"),
         delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
         ragged_delivery_cuda=traffic["ragged_delivery_cuda"],
@@ -1980,6 +2020,7 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
             g = mb.group
             counter = g.step_fn = CollectiveCounter(g.step_fn)
             steps0, routed0 = g.steps, g.messages_routed
+            busy0, native0 = g.busy_steps, g.native_egress_steps
             recent0 = len(g.recent_steps)
             since = mb.mark()
             lat0 = len(mb.latency_ns)
@@ -2008,6 +2049,11 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
             check(steps > 0 and launches > 0,
                   f"{label}: {steps} steps, {launches} launches of "
                   "delivery_matrix_cuda")
+            busy_steps = g.busy_steps - busy0
+            native_steps = g.native_egress_steps - native0
+            check(native_steps == busy_steps > 0, f"{label}: {native_steps} "
+                  f"of {busy_steps} busy steps egressed through "
+                  "native.egress_encode")
             if fused_ticks:
                 check(set(counter.counts) == {1}, f"{label}: a fused tick "
                       f"counted {sorted(set(counter.counts))} collectives")
@@ -2030,8 +2076,9 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
                 busy_s=sum(busy.values()), steps=steps,
                 frames_per_step_median=float(np.median(r[:, 4]))
                 if len(r) else None,
+                busy_steps=busy_steps, native_egress_steps=native_steps,
                 snapshot_ms_median=med(0), device_step_ms_median=med(1),
-                pair_extract_ms_median=med(2), egress_ms_median=med(3),
+                encode_ms_median=med(2), egress_ms_median=med(3),
                 routed_share=routed / deliveries,
                 delivery_matrix_cuda=launches,
                 launches_per_step=launches / steps,
@@ -2170,9 +2217,14 @@ async def mesh_cluster_run(devices) -> dict:
               f"{label}: the group routed {g.messages_routed} of "
               f"{len(devices) + 1} deliveries")
         check(dk.LAUNCHES > 0, f"{label}: delivery_matrix_cuda never launched")
+        check(g.native_egress_steps == g.busy_steps > 0,
+              f"{label}: {g.native_egress_steps} of {g.busy_steps} busy "
+              "steps egressed through native.egress_encode")
         for c in clients:
             c.close()
         return dict(run=label, shards=len(devices),
+                    busy_steps=g.busy_steps,
+                    native_egress_steps=g.native_egress_steps,
                     devices=[str(d) for d in g.mesh.devices],
                     clients=len(clients), deliveries=len(devices) + 1,
                     exactly_once=True, broadcast_then_direct_ms=took_ms,
@@ -2434,8 +2486,9 @@ def multihost_check(label: str, outs, bursts, shape: dict) -> None:
 
 
 def step_medians(steps, exchange) -> dict:
-    """Medians in ms over pump steps (StepTiming tuples) and their
-    exchange parts (staging, collective)."""
+    """Medians in ms over pump steps (StepTiming tuples: the third part
+    is the native encode of the steps' matrices) and their exchange parts
+    (staging, collective)."""
     r = np.asarray(steps, np.float64).reshape(-1, 6)
     x = np.asarray(exchange, np.float64).reshape(-1, 2)
     med = (lambda a, col: float(np.median(a[:, col]) * 1e3)
@@ -2443,7 +2496,7 @@ def step_medians(steps, exchange) -> dict:
     return dict(snapshot_ms_median=med(r, 0), device_step_ms_median=med(r, 1),
                 exchange_staging_ms_median=med(x, 0),
                 exchange_collective_ms_median=med(x, 1),
-                pair_extract_ms_median=med(r, 2),
+                encode_ms_median=med(r, 2),
                 egress_ms_median=med(r, 3))
 
 
@@ -2461,7 +2514,7 @@ def idle_split(out: dict) -> dict:
                  wake_lag=mean(idle["wake_lag"]),
                  barrier=mean(idle["barrier"]),
                  snapshot=mean(steps[:, 0]), device_step=mean(steps[:, 1]),
-                 pair_extract=mean(steps[:, 2]), egress=mean(steps[:, 3]))
+                 encode=mean(steps[:, 2]), egress=mean(steps[:, 3]))
     tick = idle["seconds"] / ticks * 1e3
     return dict(tick=tick, **parts, rest=tick - sum(parts.values()),
                 directory_per_tick=float(np.sum(idle["directory"])) * 1e3
@@ -2518,6 +2571,10 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
               f"{b['steps']} steps, want {2 * local}")
         check(set(b["collectives"]) == {1}, f"{label}: a fused tick counted "
               f"{sorted(set(b['collectives']))} collectives")
+        check(b["native_egress_steps"] == b["busy_steps"] > 0,
+              f"{label}: rank {o['rank']} egressed "
+              f"{b['native_egress_steps']} of {b['busy_steps']} busy steps "
+              "through native.egress_encode")
     lat = np.concatenate([o["latency_ns"] for o in outs])
     busy_s, by_pop = 0.0, {}
     for i, (popularity, b) in enumerate(bursts):
@@ -2554,6 +2611,7 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
         **percentiles_ms(lat), busy_s=busy_s,
         steps_per_process=[o["busy"]["steps"] for o in outs],
         busy_steps=len(busy_steps),
+        native_egress_steps=[o["busy"]["native_egress_steps"] for o in outs],
         busy_step=step_medians(busy_steps, busy_x),
         launches_per_step_per_process=2 * local,
         collectives_per_tick=[1],
@@ -2614,6 +2672,10 @@ async def one_process_comparison(device, shape: dict, pieces) -> dict:
         check(mb.group.messages_routed == deliveries and not mb.group.disabled,
               f"{label}: the group routed {mb.group.messages_routed} of "
               f"{deliveries} deliveries")
+        g = mb.group
+        check(g.native_egress_steps == g.busy_steps > 0,
+              f"{label}: {g.native_egress_steps} of {g.busy_steps} busy "
+              "steps egressed through native.egress_encode")
         return dict(run=label, shards=B, devices=[str(device)] * B,
                     deliveries=deliveries, matches_oracle=True,
                     delivered_msgs_per_s=deliveries / busy,
@@ -2738,12 +2800,20 @@ async def multihost_binaries(device) -> dict:
         check(all(n > 0 for n in launches),
               f"{label}: a broker launched delivery_matrix_cuda {launches} "
               "times after its warm-up")
+        check(all(x["native"] and x["native_egress_steps"] == x["busy_steps"]
+                  > 0 for x in done),
+              f"{label}: native egress steps of busy steps "
+              f"{[(x['native_egress_steps'], x['busy_steps']) for x in done]}"
+              f", native loaded {[x['native'] for x in done]}")
         return dict(run=label, processes=2, shards=2,
                     exchange=serving[0]["exchange"],
                     devices=serving[0]["devices"], startup_s=startup_s,
                     broadcast_ms=broadcast_ms, direct_ms=direct_ms,
                     host_links=links, exit_codes=[0, 0, 0],
                     steps=[x["steps"] for x in done],
+                    busy_steps=[x["busy_steps"] for x in done],
+                    native_egress_steps=[x["native_egress_steps"]
+                                         for x in done],
                     messages_routed=[x["messages_routed"] for x in done],
                     delivery_matrix_cuda=launches,
                     warmup_launches=[s["launches"]["delivery_matrix_cuda"]
@@ -2779,6 +2849,191 @@ def phase_multihost(device, shape: dict = MULTIHOST) -> tuple:
     launches = (lock_launches + broker_launches
                 + sum(bin_line["delivery_matrix_cuda"]))
     return lines, launches, captured
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the native host routines at the slice's shape
+# ---------------------------------------------------------------------------
+
+
+def host_ms(fn, reps: int) -> float:
+    """The median of ``reps`` calls of ``fn`` on the host clock, in ms."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def native_burst(rng, n: int, shape: dict):
+    """A ``n``-frame burst in the slice's mix as wire frames (90%
+    broadcasts on 1-3 topics, 10% directs, payloads up to the base lane's
+    slot) with the ring columns ``push_batch`` takes."""
+    from pushcdn_tpu_torch.parallel.frames import mask_of_topics
+    from pushcdn_tpu_torch.proto.message import (
+        KIND_BROADCAST,
+        KIND_DIRECT,
+        Broadcast,
+        Direct,
+        serialize,
+    )
+    frames, kinds, tmasks, dests = [], [], [], []
+    for i in range(n):
+        body = rng.integers(0, 256, int(rng.integers(16, 1900)),
+                            dtype=np.uint8).tobytes()
+        if rng.random() < 0.9:
+            topics = sorted(set(int(t) for t in rng.integers(
+                0, shape["topics"], int(rng.integers(1, 4)))))
+            frames.append(serialize(Broadcast(topics, body)))
+            kinds.append(KIND_BROADCAST)
+            tmasks.append(mask_of_topics(topics, shape["topic_words"]))
+            dests.append(-1)
+        else:
+            frames.append(serialize(Direct(rng.bytes(32), body)))
+            kinds.append(KIND_DIRECT)
+            tmasks.append(0)
+            dests.append(int(rng.integers(0, shape["users"])))
+    return frames, kinds, tmasks, dests
+
+
+def egress_plain(deliver: np.ndarray, lengths, frames) -> dict:
+    """The plain per-user egress: ``np.nonzero`` row-major, then each
+    delivered frame as its 4-byte big-endian length (the wire's prefix)
+    and its bytes. Returns {user: (stream, count)}."""
+    users, idx = np.nonzero(deliver)
+    enc = [struct.pack(">I", int(n)) + bytes(f[:n])
+           for f, n in zip(frames, lengths)]
+    cuts = np.flatnonzero(np.diff(users)) + 1
+    out = {}
+    for us, fs in zip(np.split(users, cuts), np.split(idx, cuts)):
+        if len(us):
+            out[int(us[0])] = (b"".join([enc[f] for f in fs.tolist()]),
+                               len(fs))
+    return out
+
+
+def phase_native(matrices: dict, shape: dict = BROKER) -> dict:
+    """Phase 12: each native host routine on the dense kernel's own
+    matrices of phase 4 (one per popularity) and a burst of the slice's
+    frames, against its plain Python version on the same inputs, and
+    both timed on the host clock (median of repeats): ``egress_encode``
+    against ``egress_plain`` (streams and per-user counts equal byte for
+    byte), ``FrameRing.push_batch`` against its ``_put`` loop (ring
+    columns identical), ``FrameEncoder.encode`` and ``FrameScanner.scan``
+    against the struct prefix and ``_py_scan_frames`` (round trip to the
+    same payloads), and ``pydecode`` against ``decode_frames``'s Python
+    loop (equal messages). One ``native`` line per popularity."""
+    from pushcdn_tpu_torch import native
+    from pushcdn_tpu_torch.parallel.frames import FrameRing
+    from pushcdn_tpu_torch.proto import message as msg
+    from pushcdn_tpu_torch.proto.transport.base import _py_scan_frames
+
+    rows = {}
+    for k, (popularity, deliver) in enumerate(matrices.items()):
+        t_run = time.perf_counter()
+        label = f"native {popularity}"
+        rng = np.random.default_rng(120 + k)
+        U, N = deliver.shape
+        frames, kinds, tmasks, dests = native_burst(rng, N, shape)
+
+        # the ring packer against the _put loop
+        def pack(python: bool):
+            ring = FrameRing(slots=N, frame_bytes=shape["frame_bytes"],
+                             topic_words=shape["topic_words"])
+            if python:
+                for i, f in enumerate(frames):
+                    ring._put(ring._alloc(), f, kinds[i], tmasks[i], dests[i])
+            else:
+                check(ring.push_batch(frames, kinds, tmasks, dests) == N,
+                      f"{label}: push_batch packed too few frames")
+            return ring
+        packed, put = pack(False), pack(True)
+        for col in ("_bytes", "_kind", "_length", "_topic_mask", "_dest",
+                    "_valid"):
+            check(np.array_equal(getattr(packed, col), getattr(put, col)),
+                  f"{label}: push_batch's {col} differs from the _put loop's")
+        pack_ms = host_ms(lambda: pack(False), 5)
+        put_ms = host_ms(lambda: pack(True), 3)
+        batch = packed.take_batch()
+
+        # the egress encoder against the plain per-user walk
+        def encode():
+            return native.egress_encode(deliver, batch.length,
+                                        [batch.bytes_])
+        streams = encode()
+        check(streams is not None, f"{label}: egress_encode is unavailable")
+        want = egress_plain(deliver, batch.length, batch.bytes_)
+        check(streams.users == sorted(want), f"{label}: egress_encode's "
+              "users differ from the plain walk's")
+        for u in streams.users:
+            check(bytes(streams.stream(u)) == want[u][0]
+                  and int(streams.msgs[u]) == want[u][1],
+                  f"{label}: user {u}'s stream differs from the plain walk's")
+        pairs = int(deliver.sum())
+        check(streams.total_msgs == pairs, f"{label}: {streams.total_msgs} "
+              f"of {pairs} pairs encoded")
+        del streams
+        encode_ms = host_ms(encode, 5)
+        plain_ms = host_ms(
+            lambda: egress_plain(deliver, batch.length, batch.bytes_), 3)
+        nbytes = sum(len(s) for s, _ in want.values())
+
+        # the wire encoder and scanner, a round trip
+        enc = native.FrameEncoder.create(
+            capacity=sum(map(len, frames)) + 4 * N)
+        stream = bytes(enc.encode(frames))
+        check(stream == b"".join(struct.pack(">I", len(f)) + f
+                                 for f in frames),
+              f"{label}: FrameEncoder's stream differs from the prefixed "
+              "frames")
+        scanner = native.FrameScanner.create(max_frames=N)
+        offs, lens, used, err = scanner.scan(stream, 1 << 20)
+        check((offs, lens, used, err) == tuple(_py_scan_frames(stream,
+                                                               1 << 20)),
+              f"{label}: FrameScanner disagrees with the Python scan")
+        check(not err and used == len(stream)
+              and [stream[o:o + n] for o, n in zip(offs, lens)] == frames,
+              f"{label}: the scan did not give the frames back")
+        wire_encode_ms = host_ms(lambda: enc.encode(frames), 5)
+        wire_encode_plain_ms = host_ms(lambda: b"".join(
+            struct.pack(">I", len(f)) + f for f in frames), 5)
+        scan_ms = host_ms(lambda: scanner.scan(stream, 1 << 20), 5)
+        scan_plain_ms = host_ms(lambda: _py_scan_frames(stream, 1 << 20), 5)
+
+        # the batch decoder against the Python loop
+        fn = native.pydecode()
+        check(fn is not None, f"{label}: pydecode is unavailable")
+
+        def decode():
+            return fn(stream, offs, lens, 0, msg.Broadcast, msg.Direct,
+                      msg.deserialize_owned, 0)
+
+        def decode_plain():
+            saved = msg._native_decode, msg._native_decode_tried
+            msg._native_decode, msg._native_decode_tried = None, True
+            try:
+                return msg.decode_frames(stream, offs, lens)
+            finally:
+                msg._native_decode, msg._native_decode_tried = saved
+        got, ref = decode(), decode_plain()
+        check(len(got) == len(ref) == N and all(
+            type(a) is type(b) and a == b for a, b in zip(got, ref)),
+              f"{label}: pydecode's messages differ from the Python loop's")
+        decode_ms = host_ms(decode, 5)
+        decode_plain_ms = host_ms(decode_plain, 3)
+        rows[popularity] = dict(
+            popularity=popularity, users=U, frames=N, pairs=pairs,
+            egress_bytes=nbytes, matrix_source="phase 4's dense matrix",
+            egress_encode_ms=encode_ms, egress_plain_ms=plain_ms,
+            push_batch_ms=pack_ms, put_loop_ms=put_ms,
+            frame_encode_ms=wire_encode_ms,
+            frame_encode_plain_ms=wire_encode_plain_ms,
+            scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
+            pydecode_ms=decode_ms, decode_plain_ms=decode_plain_ms,
+            equal_to_plain=True, run_s=time.perf_counter() - t_run)
+        emit("native", **rows[popularity])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2824,11 +3079,28 @@ def main() -> int:
          python=sys.version.split()[0], sms=sms, max_sm_clock_mhz=clock_mhz,
          int32_ops_per_s=peak_ops, bytes_per_s=PEAK_BYTES_PER_S)
 
-    # 2. build (one nvcc per source, started together)
+    # 2. build (one nvcc per source, started together; the native host
+    # routines with g++ beside them)
+    from pushcdn_tpu_torch import native
     t0 = time.perf_counter()
-    libs = _build.build()
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries=[os.path.relpath(p, HERE) for p in libs])
+
+    def build_native():
+        t = time.perf_counter()
+        return native.build(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_native)
+        libs = _build.build()
+        kernels_s = time.perf_counter() - t0
+        try:
+            host_libs, native_s = host.result()
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from None
+    emit("build", seconds=time.perf_counter() - t0, kernels_seconds=kernels_s,
+         native_seconds=native_s,
+         libraries=[os.path.relpath(p, HERE) for p in libs],
+         native_libraries=[os.path.relpath(p, HERE)
+                           for p in host_libs.values()])
 
     # 3. kernels vs plain
     errs = phase_kernels_vs_plain(device)
@@ -2990,6 +3262,16 @@ def main() -> int:
                  lambda: dk.delivery_matrix_reference(*args)),
          write_floor_ms=write_floor_ms(U, N, device),
          **bound(*dense_work(*args), peak_ops))
+
+    # 12. the native host routines on phase 4's dense matrices (a base-lane
+    # launch of each popularity's run, recomputed by the plain version)
+    matrices = {}
+    for popularity in ("uniform", "zipf"):
+        args = max(captured[("dense", popularity)]["dense"],
+                   key=lambda a: a[2].shape[0])
+        matrices[popularity] = dk.delivery_matrix_reference(
+            *args).cpu().numpy()
+    phase_native(matrices)
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's, the

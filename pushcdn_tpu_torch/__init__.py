@@ -23,13 +23,16 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
   and the two-process deployment in ``testing.two_host``)
 - ``broker.broker``, ``broker.tasks``, ``broker.test_harness`` and
   ``proto`` — the single-broker host data path over the Memory, TCP and
-  TCP+TLS transports, copied from the JAX package (``native`` stands in
-  for its C++ host routines and answers None, so they run in Python)
+  TCP+TLS transports, copied from the JAX package
+- ``native`` — the port's own copies of the JAX package's C++ host
+  routines (ring packer, wire scanner and encoder, the planes' egress
+  encoder, the batch decoder), built with ``g++`` at first use
 - ``marshal``, ``client``, ``testing.cluster`` and ``bin`` — the marshal,
   the elastic client, the in-process cluster and the ``broker``,
   ``marshal`` and ``client`` binaries, copied the same way
 
-The package imports torch and numpy only: nothing of JAX and nothing of
+The package imports torch and numpy only (``native`` and the host-only
+processes not even torch): nothing of JAX and nothing of
 ``pushcdn_tpu``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; they never fall back to the CPU on their own.
 """

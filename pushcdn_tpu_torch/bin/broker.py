@@ -12,8 +12,10 @@ non-zero without it rather than serve on the CPU unasked), and
 ``PUSHCDN_DELIVERY_IMPL`` (``auto``, ``dense`` or ``ragged``) picks its
 delivery step. On SIGINT/SIGTERM the broker drains and logs one
 ``device plane exit`` line: the plane's steps, the messages it routed,
-its steps' median parts and this process's launches of each kernel
-(``broker serving`` gives the same after the warm-up).
+its steps' median parts, this process's launches of each kernel, whether
+the native host routines loaded (``native``) and how many of its busy
+steps egressed through the native encoder (``native_egress_steps`` of
+``busy_steps``); ``broker serving`` gives the same after the warm-up.
 
 ``--mesh-shards N`` makes the broker a shard of a multi-process mesh
 group instead (``broker.multihost_group``): every broker process of the
@@ -139,13 +141,16 @@ def kernel_launches() -> dict:
 def log_plane(what: str, plane) -> None:
     """One line of JSON after ``what``: the plane's counters (for a mesh
     group's shard, the group's), the medians of its recent steps' parts
-    in ms, and this process's kernel launches."""
-    fields = dict(launches=kernel_launches())
+    in ms, this process's kernel launches, whether the native host
+    routines loaded and the steps egressed through their encoder."""
+    from pushcdn_tpu_torch import native
+    fields = dict(launches=kernel_launches(), native=native.available())
     if plane is not None:
         group = getattr(plane, "group", None)
         owner = plane if group is None else group
         fields.update(steps=plane.steps, messages_routed=plane.messages_routed,
-                      disabled=plane.disabled)
+                      disabled=plane.disabled, busy_steps=owner.busy_steps,
+                      native_egress_steps=owner.native_egress_steps)
         if group is None:
             fields.update(delivery_impl=plane.delivery_impl,
                           device=str(plane.device))

@@ -16,8 +16,12 @@ Two ways to drive it:
   receive loop stages each eligible frame (``try_stage``/``stage_batch``
   with ``(message, raw)`` items, as in the JAX package), :meth:`start`
   spawns an asyncio pump that steps the plane in a worker thread, and
-  the pump writes every delivered frame to the users' connections
-  (``senders.egress_delivery_rows``);
+  the pump hands the users' connections what the step delivered: on
+  the dense step, each lane's matrix encoded in the worker thread into
+  per-user wire streams by the native engine (``native.egress_encode``,
+  delivered by ``senders.egress_streams``); on the ragged step, its
+  pairs walked in Python (``senders.egress_delivery_rows``), as in the
+  JAX package;
 - **socket-free**: :meth:`stage_frames` takes ``(kind, payload, target)``
   items and :meth:`step` returns the per-lane pairs plus the lane's host
   ``length`` and ``bytes_`` arrays.
@@ -51,8 +55,10 @@ Consistency design (single-writer, snapshot-per-step):
   broker down (``Broker.run_until_failure``) instead of passing as a
   host broker. The socket-free ``step()`` raises to its caller.
 
-Egress is Python (``senders.egress_delivery_rows``); the JAX package's
-native egress engine is not copied yet.
+On the CPU a plane whose native library did not build egresses its
+dense steps through the Python walk too, as the JAX package's does. On
+the card it does not: a warm-up without the library raises out of
+:meth:`start`, and a dense step never takes the Python walk.
 """
 
 from __future__ import annotations
@@ -70,10 +76,13 @@ import torch
 from pushcdn_tpu_torch._device import DeviceLike, resolve_device
 from pushcdn_tpu_torch.broker.pump_common import (
     CoalesceGate,
+    EncodedEgress,
     RevCache,
     TopicMaskCache,
     effective_users,
-    egress_snapshot_frames,
+    egress_job,
+    encode_egress,
+    require_native_egress,
 )
 from pushcdn_tpu_torch.broker.staging import StageResult, frame_item
 from pushcdn_tpu_torch.ops.ragged_delivery import (
@@ -179,7 +188,8 @@ class StepTiming(NamedTuple):
 
     snapshot_s: float   # rings, mirrors and ragged walk (on the loop)
     device_s: float     # upload, kernels and readback
-    pairs_s: float      # pair extraction
+    pairs_s: float      # pair extraction; under a pump's dense step,
+                        # the native encode of the matrices instead
     egress_s: float     # delivered frames queued to the connections
                         # (0 for the socket-free step())
     frames: int         # frames the step routed
@@ -239,6 +249,10 @@ class DevicePlane:
         self.ragged_fallbacks = 0   # ticks that fell back to dense
         self.steps = 0
         self.messages_routed = 0
+        # pump steps that delivered something, and of those the steps
+        # whose every lane went out through native.egress_encode
+        self.busy_steps = 0
+        self.native_egress_steps = 0
         # the recent steps (StepTiming), newest last
         self.recent_steps: collections.deque = collections.deque(
             maxlen=4096)
@@ -501,6 +515,8 @@ class DevicePlane:
         u0 = effective_users(0, self.config.num_user_slots)
         steps = self.steps
         try:
+            if not self.fails_open:
+                require_native_egress("a DevicePlane")
             walks = self._pack_walks(empty) \
                 if self.delivery_impl == "ragged" else None
             for batches in (empty, lat):
@@ -550,17 +566,20 @@ class DevicePlane:
                 try:
                     jobs, pairs_s = await asyncio.to_thread(
                         self._run_step, snap.batches, snap.owned,
-                        snap.masks, snap.state_rev, snap.walks)
+                        snap.masks, snap.state_rev, snap.walks,
+                        encode=True)
                 finally:
                     self._step_inflight = False
                 t2 = time.perf_counter()
                 gate.stepped(loop.time())
-                delivered = sum(
-                    egress_snapshot_frames(self.broker, self.slots, j.users,
-                                           j.frames, j.length, j.bytes_)
-                    for j in jobs)
+                delivered = sum(egress_job(self.broker, self.slots, j)
+                                for j in jobs)
                 t3 = time.perf_counter()
                 self.messages_routed += delivered
+                if jobs:
+                    self.busy_steps += 1
+                    if all(isinstance(j, EncodedEgress) for j in jobs):
+                        self.native_egress_steps += 1
                 self.recent_steps.append(StepTiming(
                     t1 - t0, t2 - t1 - pairs_s, pairs_s, t3 - t2,
                     sum(b.num_valid for b in snap.batches), delivered))
@@ -613,14 +632,18 @@ class DevicePlane:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _run_step(self, lane_batches, owned: np.ndarray, masks: np.ndarray,
-                  state_rev: Optional[int], walks, warmup: bool = False):
+                  state_rev: Optional[int], walks, warmup: bool = False,
+                  encode: bool = False):
         """The device step against the snapshotted mirrors (under the
         pump, in a worker thread). Idle lanes reuse cached device-side
         empty batches; zero-width byte stubs stand in for the frame bytes
         (``gather_bytes=False``). Returns the lanes' deliveries and the
         seconds spent extracting pairs. ``warmup`` routes every lane
         whatever its traffic (idle ragged lanes too) and delivers
-        nothing."""
+        nothing. With ``encode`` (the pump) a dense lane's matrix is
+        encoded into wire streams (an :class:`EncodedEgress`, its seconds
+        counted as the pairs'); without the library that is the lane's
+        pairs on the CPU and an error on the card."""
         up = self._upload
 
         def build_state():
@@ -652,7 +675,7 @@ class DevicePlane:
             return dev
 
         busy = [bool(b.valid.any()) for b in lane_batches]
-        jobs: List[LaneDeliveries] = []
+        jobs: list = []
         pairs_s = 0.0
         self.steps += 1
 
@@ -691,11 +714,19 @@ class DevicePlane:
                 deliver = lane.deliver.cpu().numpy()
                 if warmup:
                     continue
+                b = lane_batches[li]
                 t = time.perf_counter()
+                streams = None
+                if encode and deliver.any():
+                    streams = encode_egress(deliver, b.length, [b.bytes_],
+                                            strict=not self.fails_open)
+                if streams is not None:
+                    pairs_s += time.perf_counter() - t
+                    jobs.append(EncodedEgress(0, streams))
+                    continue
                 users, frames = np.nonzero(deliver)
                 pairs_s += time.perf_counter() - t
                 if len(users):
-                    b = lane_batches[li]
                     jobs.append(LaneDeliveries(li, users, frames, b.length,
                                                b.bytes_))
         return jobs, pairs_s

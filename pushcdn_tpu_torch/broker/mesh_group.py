@@ -13,8 +13,13 @@ Two layers, the second built on the first:
   ``Broker`` whose ``device_plane`` is a :class:`MeshShardPlane`. The
   brokers' receive loops stage ``(message, raw)`` pairs, an asyncio pump
   takes the snapshot on the event loop and runs the step in a worker
-  thread, and each shard's deliveries go out through its own broker
-  (``senders.egress_delivery_rows``, Python). The inter-broker hop is
+  thread, where each shard's delivery matrices are encoded into per-user
+  wire streams by the native engine (``native.egress_encode``, its
+  blocks in gather order); each shard's streams go out through its own
+  broker (``senders.egress_streams``). On the CPU without the library
+  the shard's pairs are walked in Python instead
+  (``senders.egress_delivery_rows``); on the card a warm-up without it
+  raises out of every member's ``Broker.start()``. The inter-broker hop is
   the step's exchange, so member brokers need no host links; those stay
   the fallback plane for traffic the mesh cannot carry (overflow) and,
   on the CPU, for a group whose step failed.
@@ -33,7 +38,8 @@ which owns the sessions (the broker group closes the old session).
 Failure: on the CPU a broker group fails open as the JAX package's does
 (a failed warm-up disables it; a failed step re-routes its frames, and
 the frames staged while it ran, over the host links and disables it).
-On the card a failed warm-up raises out of every member's
+On the card a failed warm-up (a native egress library that did not
+build or load included) raises out of every member's
 ``Broker.start()``, and a failed step re-routes its frames the same way
 and then ends the pump, which every member broker supervises, so the
 group's brokers go down instead of serving on as host brokers.
@@ -54,10 +60,13 @@ import torch
 from pushcdn_tpu_torch.broker.device_plane import StepTiming
 from pushcdn_tpu_torch.broker.pump_common import (
     CoalesceGate,
+    EncodedEgress,
     RevCache,
     TopicMaskCache,
     effective_users,
-    egress_snapshot_frames,
+    egress_job,
+    encode_egress,
+    require_native_egress,
 )
 from pushcdn_tpu_torch.broker.staging import StageResult, frame_item
 from pushcdn_tpu_torch.parallel.crdt import ABSENT, CrdtState
@@ -231,6 +240,14 @@ class MeshGroup:
         # host snapshot and upload; the mesh step (exchange and per-shard
         # routing) through the delivery matrices' readback; pair extraction
         self.last_step_seconds = (0.0, 0.0, 0.0)
+
+    @property
+    def fails_open(self) -> bool:
+        """Whether the group runs off the card: there a failed warm-up or
+        step leaves a broker group's brokers serving on their host links
+        and its egress may take the Python walk (as in the JAX package);
+        on the card both end the brokers instead."""
+        return all(d.type != "cuda" for d in self.mesh.distinct_devices())
 
     # ---- mirrors ---------------------------------------------------------
 
@@ -434,10 +451,10 @@ class MeshGroup:
             self._claim_version[:u_eff].copy(), self._masks[:u_eff].copy(),
             self._liveness.copy(), self._state_rev, quarantined)
 
-    def _run_snapshot(self, snap: _MeshSnapshot):
+    def _run_snapshot(self, snap: _MeshSnapshot, encode: bool = False):
         return self._run_step(snap.batches, snap.directs, snap.owner,
                               snap.versions, snap.masks, snap.liveness,
-                              snap.state_rev)
+                              snap.state_rev, encode)
 
     def _free_quarantined(self, snap: _MeshSnapshot) -> None:
         for slot in snap.quarantined:  # the step is over: safe to recycle
@@ -465,7 +482,7 @@ class MeshGroup:
         return out
 
     def _run_step(self, batches, directs, owner, versions, masks, liveness,
-                  state_rev: Optional[int]):
+                  state_rev: Optional[int], encode: bool = False):
         """The mesh step against the snapshot (under the broker group's
         pump, in a worker thread). ``batches`` and ``directs`` are
         [lane][shard] host snapshots. Lanes idle on every shard reuse
@@ -473,7 +490,11 @@ class MeshGroup:
         for frame bytes unless ``gather_frame_bytes``. Only local shards'
         rows go up and only local shards deliver (every shard, in one
         process). Returns the deliveries, the seconds spent uploading and
-        the seconds spent extracting pairs."""
+        the seconds spent extracting pairs. With ``encode`` (the broker
+        group's pump) each shard's matrix is encoded into wire streams
+        instead (an :class:`EncodedEgress`, its seconds counted as the
+        pairs'); without the library that is the shard's pairs off the
+        card and an error on it."""
         t0 = time.perf_counter()
         B = self.num_shards
         local = self.mesh.local_indices
@@ -555,62 +576,82 @@ class MeshGroup:
 
         pairs_s = 0.0
         live = [s for s in local if liveness[s]]
-        out: List[ShardDeliveries] = []
+        out: list = []
         # across processes a lane idle here may carry other processes'
         # frames: its readback is skipped only when it delivers nothing
         remote = self.mesh.spans_processes
-        none = (np.empty(0, np.int64), np.empty(0, np.int64))
+        strict = not self.fails_open
 
-        def pairs(deliver: torch.Tensor, busy: bool):
-            nonlocal pairs_s
+        def readback(deliver: torch.Tensor, busy: bool):
+            """The shard's matrix on the host, or None when it delivers
+            nothing."""
             if not busy and not bool(deliver.any()):
-                return none
+                return None
             d = deliver.cpu().numpy()
+            return d if d.any() else None
+
+        joined = [None, None]   # the last lane's blocks, concatenated
+
+        def emit(s, li, direct, d, lengths, blocks):
+            """One shard's deliveries: encoded into wire streams, or its
+            pairs with the frames they index."""
+            nonlocal pairs_s
             t = time.perf_counter()
+            streams = (encode_egress(d, lengths, blocks, strict)
+                       if encode else None)
+            if streams is not None:
+                pairs_s += time.perf_counter() - t
+                out.append(EncodedEgress(s, streams))
+                return
             users, frames = np.nonzero(d)
             pairs_s += time.perf_counter() - t
-            return users, frames
+            if joined[0] is not blocks:
+                joined[:] = [blocks, blocks[0] if len(blocks) == 1
+                         else np.concatenate(blocks)]
+            out.append(ShardDeliveries(s, li, direct, users, frames,
+                                       lengths, joined[1]))
 
         for li, lane in enumerate(batches):
             if not (busy_b[li] or remote):
                 continue  # an idle lane can't deliver: skip its readback
-            found = [(s, *pairs(result[s].lanes[li].deliver, busy_b[li]))
+            found = [(s, readback(result[s].lanes[li].deliver, busy_b[li]))
                      for s in live]
-            found = [f for f in found if len(f[1])]
+            found = [(s, d) for s, d in found if d is not None]
             if not found:
                 continue
             if gather:
+                # the gathered frames are the same on every shard
                 g = result[found[0][0]].lanes[li]
                 lengths = g.gathered_length.cpu().numpy()
-                blocks = g.gathered_bytes.cpu().numpy()
+                blocks = [g.gathered_bytes.cpu().numpy()]
             else:
+                # every shard's ring in mesh order: shard src's slot k is
+                # frame src * S + k
                 lengths = np.concatenate([b.length for b in lane])
-                blocks = np.concatenate([b.bytes_ for b in lane])
-            out.extend(ShardDeliveries(s, li, False, users, frames, lengths,
-                                       blocks) for s, users, frames in found)
+                blocks = [b.bytes_ for b in lane]
+            for s, d in found:
+                emit(s, li, False, d, lengths, blocks)
         for li, lane in enumerate(directs):
             if not (busy_d[li] or remote):
                 continue
             for s in live:
                 g = result[s].direct_lanes[li]
-                users, frames = pairs(g.deliver, busy_d[li])
-                if not len(users):
+                d = readback(g.deliver, busy_d[li])
+                if d is None:
                     continue
                 if gather:
                     # the exchange's output differs per shard: each
                     # shard's received frames pair with its own matrix
                     lengths = g.gathered_length.cpu().numpy()
-                    blocks = g.gathered_bytes.cpu().numpy()
+                    blocks = [g.gathered_bytes.cpu().numpy()]
                 else:
                     # the all_to_all transposes the buckets: shard s
                     # received, from each source, that source's bucket
                     # for s
                     lengths = np.concatenate(
                         [lane[src].length[s] for src in range(B)])
-                    blocks = np.concatenate(
-                        [lane[src].bytes_[s] for src in range(B)])
-                out.append(ShardDeliveries(s, li, True, users, frames,
-                                           lengths, blocks))
+                    blocks = [lane[src].bytes_[s] for src in range(B)]
+                emit(s, li, True, d, lengths, blocks)
         return out, t1 - t0, pairs_s
 
 
@@ -719,17 +760,14 @@ class MeshBrokerGroup(MeshGroup):
         self._starting: Optional[asyncio.Future] = None
         self._task: Optional[asyncio.Task] = None
         # the pump's recent steps (StepTiming: snapshot on the loop;
-        # upload, mesh step and readback in the worker thread; pair
-        # extraction; egress), newest last
+        # upload, mesh step and readback in the worker thread; the native
+        # encode, or pair extraction; egress), newest last
         self.recent_steps: collections.deque = collections.deque(
             maxlen=4096)
-
-    @property
-    def fails_open(self) -> bool:
-        """Whether a failed warm-up or step leaves the brokers serving on
-        their host links (the CPU, as in the JAX package) rather than
-        ending them (the card)."""
-        return all(d.type != "cuda" for d in self.mesh.distinct_devices())
+        # pump steps that delivered something, and of those the steps
+        # whose every shard went out through native.egress_encode
+        self.busy_steps = 0
+        self.native_egress_steps = 0
 
     @property
     def pump_task(self) -> Optional[asyncio.Task]:
@@ -785,6 +823,8 @@ class MeshBrokerGroup(MeshGroup):
         live = np.ones(self.num_shards, bool)
         steps = self.steps
         try:
+            if not self.fails_open:
+                require_native_egress("a MeshBrokerGroup")
             for b, d in ((batches, directs), (small, small_d)):
                 self._run_step(b, d, self._owner[:u0].copy(),
                                self._claim_version[:u0].copy(),
@@ -891,16 +931,10 @@ class MeshBrokerGroup(MeshGroup):
             t1 = time.perf_counter()
             try:
                 out, _upload_s, pairs_s = await asyncio.to_thread(
-                    self._run_snapshot, snap)
+                    self._run_snapshot, snap, True)
                 t2 = time.perf_counter()
                 gate.stepped(loop.time())
-                # each shard's deliveries go out through its own broker
-                # (one stopped while the step ran gets none)
-                delivered = sum(
-                    egress_snapshot_frames(self.brokers[d.shard], self.slots,
-                                           d.users, d.frames, d.length,
-                                           d.bytes_)
-                    for d in out if self.brokers[d.shard] is not None)
+                delivered = self._egress(out)
                 t3 = time.perf_counter()
                 self.messages_routed += delivered
                 frames = (sum(int(b.valid.sum()) for lane in snap.batches
@@ -933,6 +967,19 @@ class MeshBrokerGroup(MeshGroup):
                 raise   # on the card: every member broker goes down
             finally:
                 self._free_quarantined(snap)
+
+    def _egress(self, out) -> int:
+        """Queue a step's deliveries, each shard's through its own broker
+        (one stopped while the step ran gets none), and count the step
+        as busy and, when every shard's went out encoded, as native.
+        Returns the frames queued."""
+        delivered = sum(egress_job(self.brokers[j.shard], self.slots, j)
+                        for j in out if self.brokers[j.shard] is not None)
+        if out:
+            self.busy_steps += 1
+            if all(isinstance(j, EncodedEgress) for j in out):
+                self.native_egress_steps += 1
+        return delivered
 
     async def _host_fallback(self, batches) -> None:
         """Re-route one broadcast lane's staged frames (a batch per shard)

@@ -25,7 +25,10 @@ Differences from the single-process :class:`MeshBrokerGroup`:
   merge; each process authors only its own shards' claims.
 - **Frame bytes ride the collectives** (``gather_frame_bytes=True``): a
   remote shard's payload exists here only through the step, and egress
-  is host-local, through each local shard's broker.
+  is host-local: each local shard's matrix is encoded into wire streams
+  in the step's worker thread (``native.egress_encode``, the gathered
+  bytes pulled only for shards that deliver) and goes out through that
+  shard's broker.
 - **pk -> slot rendezvous through discovery.** A direct needs its
   recipient's slot; across processes that mapping travels through the
   discovery store's user-slot directory, re-published on a TTL. A
@@ -40,7 +43,8 @@ path), logs the staged frames it strands and ends the pump. On the CPU
 the brokers then go on serving their own users on the host path, as the
 JAX group's do. On the card the pump ends with the failure's exception
 and every local member broker goes down with it, as the port's other
-planes do there; a warm-up that fails raises out of every member's
+planes do there; a warm-up that fails (a native egress library that did
+not build or load included) raises out of every member's
 ``Broker.start()``. A peer process that retires cleanly ends the pump
 without an exception, and the brokers keep serving.
 """
@@ -62,7 +66,7 @@ from pushcdn_tpu_torch.broker.mesh_group import (
     MeshGroupConfig,
     MeshShardPlane,
 )
-from pushcdn_tpu_torch.broker.pump_common import egress_snapshot_frames
+from pushcdn_tpu_torch.broker.pump_common import require_native_egress
 from pushcdn_tpu_torch.parallel.crdt import ABSENT
 from pushcdn_tpu_torch.parallel.frames import UserSlots, mask_row_of
 from pushcdn_tpu_torch.parallel.multihost import (
@@ -308,6 +312,8 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
         raises on the card."""
         steps = self.steps
         try:
+            if not self.fails_open:
+                require_native_egress("a MultiHostBrokerGroup")
             self._run_snapshot(self._snapshot())
             self._collective_stop(False)
         except Exception:
@@ -398,15 +404,11 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
             x0 = exchange_seconds()
             try:
                 out, _upload_s, pairs_s = await asyncio.wait_for(
-                    asyncio.to_thread(self._run_snapshot, snap),
+                    asyncio.to_thread(self._run_snapshot, snap, True),
                     timeout=self.collective_timeout_s)
                 t2 = time.perf_counter()
                 x1 = exchange_seconds()
-                delivered = sum(
-                    egress_snapshot_frames(self.brokers[d.shard], self.slots,
-                                           d.users, d.frames, d.length,
-                                           d.bytes_)
-                    for d in out if self.brokers[d.shard] is not None)
+                delivered = self._egress(out)
                 t3 = time.perf_counter()
                 self.messages_routed += delivered
                 frames = (sum(int(b.valid.sum()) for lane in snap.batches

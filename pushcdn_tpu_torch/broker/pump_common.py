@@ -9,14 +9,20 @@
 - the revision-keyed device-state cache (steady state uploads no user
   table),
 - the per-plane topic-list → mask memo,
-- the egress of delivered frames from a step's host snapshot.
+- the egress of a step: its delivery matrices encoded into per-user wire
+  streams by the native engine (``native.egress_encode``), or, where the
+  library is absent on the CPU and for the ragged step's pairs, the
+  delivered frames walked from the step's host snapshot.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+import time
+from typing import Any, Callable, NamedTuple, Optional
 
+from pushcdn_tpu_torch import native
 from pushcdn_tpu_torch.parallel.frames import mask_of_topics
+from pushcdn_tpu_torch.proto import metrics as metrics_mod
 
 # user-table slice granularity
 U_ROUND = 64
@@ -133,3 +139,51 @@ def egress_snapshot_frames(broker, slots, users, frames, length,
     finally:
         for raw in cache.values():
             raw.release()
+
+
+class EncodedEgress(NamedTuple):
+    """One delivery matrix of a step, encoded: ``streams`` holds the
+    per-user wire streams (``native.EgressStreams``) for the users of
+    shard ``shard`` (0 on a single-shard plane)."""
+
+    shard: int
+    streams: Any
+
+
+def require_native_egress(what: str) -> None:
+    """A plane on the card egresses through the native engine or not at
+    all: raise, naming ``what``, when the library did not build or
+    load."""
+    if not native.available():
+        raise RuntimeError(
+            f"{what} on the card requires the native egress engine, which "
+            f"did not build or load: {native.build_errors()}")
+
+
+def encode_egress(deliver, lengths, blocks, strict: bool):
+    """Encode one delivery matrix (bool[U, N]) into per-user wire streams
+    with ``native.egress_encode``; frame ``n`` is row ``n % rows`` of
+    ``blocks[n // rows]`` and ``lengths[n]`` bytes long. The call is timed
+    into ``cdn_native_seconds{kernel="egress_encode"}``. Returns None when
+    the library is absent, and raises instead when ``strict`` (a plane on
+    the card)."""
+    t0 = time.perf_counter()
+    streams = native.egress_encode(deliver, lengths, blocks)
+    metrics_mod.NATIVE_EGRESS_SECONDS.inc(time.perf_counter() - t0)
+    if streams is None and strict:
+        require_native_egress("a device plane's egress")
+        raise RuntimeError("native.egress_encode answered None")
+    return streams
+
+
+def egress_job(broker, slots, job) -> int:
+    """Queue one egress job of a step to ``broker``'s users: an
+    :class:`EncodedEgress` as one pre-framed stream per user
+    (``senders.egress_streams``), a job of pairs (``users``, ``frames``,
+    ``length``, ``bytes_``) through :func:`egress_snapshot_frames`.
+    Returns the number of frames queued."""
+    if isinstance(job, EncodedEgress):
+        from pushcdn_tpu_torch.broker.tasks.senders import egress_streams
+        return egress_streams(broker, slots, job.streams)
+    return egress_snapshot_frames(broker, slots, job.users, job.frames,
+                                  job.length, job.bytes_)

@@ -22,9 +22,9 @@ last-fan-out-write; its lifetime feeds the LATENCY histogram
 (limiter.AllocationPermit), mirroring the reference's latency proxy.
 
 A copy of ``pushcdn_tpu.broker.tasks.handlers`` without the cut-through
-plane (native route plan), the sharded data plane's handoff ring and the
-native batch pre-encoder: the receive loops always take the scalar loops
-below, as the JAX package's do while a device plane is attached.
+plane (native route plan) and the sharded data plane's handoff ring: the
+receive loops always take the scalar loops below, as the JAX package's do
+while a device plane is attached.
 """
 
 from __future__ import annotations
@@ -141,13 +141,28 @@ class EgressBatch:
 
     @staticmethod
     async def _send_batch(conn, frames: list) -> None:
-        """Hand one peer its whole batch with ``send_raw_many`` (the
-        writer's own coalescer); the connection consumes the frames."""
+        """Hand one peer its whole batch. Small-frame batches pre-encode
+        into ONE PreEncoded writer entry via the native batch encoder
+        (verbatim flush, permits released here, no per-frame writer
+        work); other shapes ride ``send_raw_many`` (the writer's own
+        coalescer). Ownership rule either way: the frames are consumed —
+        released here on the encode path, by the connection on the raw
+        path."""
         # class volume was already counted at the routing decision
         # (route_direct/route_broadcast, one count per fan-out pair), so
         # the writer entries carry nframes=0/nbytes=0 and only observe
         # queue delay
-        await conn.send_raw_many(frames, nframes=0, nbytes=0)
+        if len(frames) < 2:  # depth-1: nothing to coalesce, skip probing
+            await conn.send_raw_many(frames, nframes=0, nbytes=0)
+            return
+        from pushcdn_tpu_torch.broker.tasks.senders import pre_encode_frames
+        encoded = pre_encode_frames(frames)
+        if encoded is not None:
+            for f in frames:
+                f.release()
+            await conn.send_encoded(encoded, nbytes=0, count=len(frames))
+        else:
+            await conn.send_raw_many(frames, nframes=0, nbytes=0)
 
     async def flush(self) -> None:
         broker = self.broker

@@ -6,10 +6,8 @@ SURVEY.md §5 "failure *is* an I/O error").
 All senders take refcounted :class:`Bytes` frames and clone per recipient —
 fan-out shares one payload buffer (Arc-clone parity, handler.rs hot path).
 
-A copy of ``pushcdn_tpu.broker.tasks.senders`` without the native egress
-streams (``egress_encode``) and the fused pump's log tag; the port's
-``native`` module has no batch encoder, so ``pre_encode_frames`` answers
-None and every batch rides ``send_raw_many_nowait``.
+A copy of ``pushcdn_tpu.broker.tasks.senders`` without the fused pump's
+log tag (the port has no fused pump).
 """
 
 from __future__ import annotations
@@ -121,6 +119,44 @@ def try_send_frames_to_user_nowait(broker: "Broker", public_key: bytes,
         broker.connections.remove_user(public_key, reason="send failed")
         broker.update_metrics()
         return 0
+
+
+def try_send_encoded_to_user_nowait(broker: "Broker", public_key: bytes,
+                                    data, owner=None,
+                                    nframes: int = 0) -> bool:
+    """Queue a pre-framed egress stream (native.egress_encode output) to
+    one user — zero per-frame work here or in the writer; a failure
+    removes the user (failure-is-removal, as everywhere). ``owner`` keeps
+    a pooled egress buffer alive until the flush completes. ``nframes``
+    feeds the writer's class accounting (the stream itself is opaque)."""
+    connection = broker.connections.get_user_connection(public_key)
+    if connection is None:
+        return False
+    try:
+        connection.send_encoded_nowait(data, owner, nframes=nframes)
+        return True
+    except Exception as exc:
+        logger.info("encoded send to user %s failed (%r); removing",
+                    mnemonic(public_key), exc)
+        broker.connections.remove_user(public_key, reason="send failed")
+        broker.update_metrics()
+        return False
+
+
+def egress_streams(broker: "Broker", slots, streams) -> int:
+    """Deliver one step's native egress (:class:`native.EgressStreams`):
+    one pre-framed stream handoff per user with deliveries. Returns the
+    number of messages queued."""
+    routed = 0
+    for slot in streams.users:
+        key = slots.key_of(int(slot))
+        if key is None:  # released mid-step: user is gone, drop
+            continue
+        if try_send_encoded_to_user_nowait(broker, key, streams.stream(slot),
+                                           owner=streams,
+                                           nframes=int(streams.msgs[slot])):
+            routed += int(streams.msgs[slot])
+    return routed
 
 
 def egress_delivery_rows(broker: "Broker", slots, users, frame_idx,

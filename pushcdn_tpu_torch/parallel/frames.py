@@ -19,8 +19,9 @@ shard instead.
 
 The rings stay on the host (numpy): only the metadata columns are
 uploaded for a step, and frame bytes egress from the ring snapshot.
-Packing is the plain Python ``_put`` loop; the JAX package packs with a
-native C routine, which this package does not have yet.
+``FrameRing.push_batch`` packs a batch with one native call
+(``native.pack_frames_into``), and with the plain Python ``_put`` loop
+when the native library is absent.
 """
 
 from __future__ import annotations
@@ -170,6 +171,7 @@ class FrameRing:
                                     dtype=np.uint32)
         self._dest = np.full(slots, -1, dtype=np.int32)
         self._valid = np.zeros(slots, dtype=bool)
+        self._mask_rows: dict = {}  # mask int -> uint32[W] word expansion
         self._next = 0
         self._used = 0
         self._empty: Optional[FrameBatch] = None
@@ -228,19 +230,76 @@ class FrameRing:
     def push_batch(self, payloads: Sequence[bytes], kinds: Sequence[int],
                    tmasks: Sequence[int], dests: Sequence[int]) -> int:
         """Pack many messages at the current cursor (after any singly
-        pushed frames). Returns the number packed; fewer than
+        pushed frames) with one native call, writing straight into the
+        ring's arrays; the Python ``_put`` loop when the native library
+        is absent. Returns the number packed; fewer than
         ``len(payloads)`` means exactly "ring full — re-queue the rest".
         Oversized payloads raise ``ValueError`` up front, so the return
         value is never ambiguous between full and unroutable."""
         if not (len(kinds) == len(tmasks) == len(dests) == len(payloads)):
             raise ValueError("payloads/kinds/tmasks/dests length mismatch")
-        for i, p in enumerate(payloads):
-            if len(p) > self.frame_bytes:
-                raise ValueError(
-                    f"payload {i} is {len(p)} B > frame slot "
-                    f"{self.frame_bytes} B; pre-filter to the host path")
+        if payloads and max(map(len, payloads)) > self.frame_bytes:
+            i = next(i for i, p in enumerate(payloads)
+                     if len(p) > self.frame_bytes)
+            raise ValueError(
+                f"payload {i} is {len(payloads[i])} B > frame slot "
+                f"{self.frame_bytes} B; pre-filter to the host path")
+        from pushcdn_tpu_torch import native
+        start = self._next
+        kinds_a = np.asarray(kinds, np.int32)
+        dests_a = np.asarray(dests, np.int32)
+        if self.topic_words == 1:
+            try:  # C speed for in-range masks (the ≤32-topic contract)
+                tmasks_a = np.fromiter(tmasks, np.uint32,
+                                       count=len(payloads))
+            except (OverflowError, ValueError, TypeError):
+                tmasks_a = np.asarray(
+                    [m & 0xFFFFFFFF for m in tmasks], np.uint32)
+        else:
+            W = self.topic_words
+            tmasks_a = np.zeros((len(payloads), W), np.uint32)
+            # memoised word expansion: a step's masks come from the few
+            # distinct topic sets in flight, so each distinct mask is
+            # expanded once (little-endian u32 words, as split_mask)
+            rows = self._mask_rows
+            allbits = (1 << (32 * W)) - 1
+
+            def expand(m):
+                # truncate first, as split_mask does: out-of-range or
+                # negative masks must not overflow to_bytes
+                m = int(m) & allbits
+                row = rows.get(m)
+                if row is None:
+                    if len(rows) >= 4096:  # bound pathological churn
+                        rows.clear()
+                    row = rows[m] = np.frombuffer(
+                        m.to_bytes(4 * W, "little"), np.uint32).copy()
+                return row
+
+            if not isinstance(tmasks, list):
+                tmasks = list(tmasks)
+            first = tmasks[0] if len(tmasks) else 0
+            if tmasks.count(first) == len(tmasks):
+                # one topic set for the whole batch (one publisher): a
+                # single vectorised fill instead of a row per frame
+                tmasks_a[:] = expand(first)
+            else:
+                for i, m in enumerate(tmasks):
+                    tmasks_a[i] = expand(m)
+        valid_u8 = np.zeros(self.slots - start, np.uint8)
+        n = native.pack_frames_into(
+            list(payloads), kinds_a, tmasks_a, dests_a,
+            self._bytes[start:], self._kind[start:], self._length[start:],
+            self._topic_mask[start:], self._dest[start:], valid_u8)
+        if n is not None:
+            self._valid[start:start + n] = True
+            self._used += n
+            self._next += n
+            return n
+        # the library is absent: the Python loop, same result
         n = 0
-        for payload, k, tm, d in zip(payloads, kinds, tmasks, dests):
+        for payload, k, tm, d in zip(payloads, kinds_a, list(tmasks),
+                                     dests_a):
             i = self._alloc()
             if i is None:
                 break

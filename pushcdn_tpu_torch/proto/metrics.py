@@ -634,8 +634,9 @@ E2E_LATENCY = Histogram(
 
 # Monotonic-clock accounting around the native seams we own: one
 # perf_counter pair per *batch-level* call (route plan per chunk, egress
-# encode per fan-out batch), so a scrape answers "is the loop hot in
-# planning or egress" without a debugger.
+# encode per fan-out batch and per delivery matrix of a device step), so
+# a scrape answers "is the loop hot in planning or egress" without a
+# debugger.
 NATIVE_SECONDS = Counter(
     "cdn_native_seconds",
     "Cumulative wall-clock seconds inside instrumented native seams "
@@ -662,7 +663,8 @@ TASK_SAMPLES = Counter(
 # so a plane that fell to the CPU is visible on every scrape.
 BUILD_INFO = Gauge("cdn_build_info",
                    "Build/runtime identity (value is always 1)",
-                   labels=("version", "torch", "backend", "device_kind"))
+                   labels=("version", "torch", "backend", "device_kind",
+                           "native"))
 
 
 # Host I/O engine identity: which data-plane impl this process resolved
@@ -685,7 +687,9 @@ def _refresh_build_info() -> None:
     (marshal, client, a broker without a plane) reports torch=absent and
     backend=unloaded; a CPU-only torch reports backend=cpu, a CUDA build
     reports uninitialized until the process's own work brought CUDA
-    up."""
+    up. ``native`` says whether the native host routines loaded
+    (``loaded``, ``failed``, ``untried``, or ``unloaded`` before the
+    module is imported), read without building them."""
     global _build_info_last
     import pushcdn_tpu_torch
     torch_mod = sys.modules.get("torch")
@@ -705,17 +709,21 @@ def _refresh_build_info() -> None:
                         torch_mod.cuda.current_device())
         except Exception:
             backend = "error"
+    native_mod = sys.modules.get("pushcdn_tpu_torch.native")
+    native = native_mod.state() if native_mod is not None else "unloaded"
     current = (pushcdn_tpu_torch.__version__, str(torch_v), backend,
-               device_kind)
+               device_kind, native)
     if current == _build_info_last:
         return
     if _build_info_last:
         BUILD_INFO.labels(version=_build_info_last[0],
                           torch=_build_info_last[1],
                           backend=_build_info_last[2],
-                          device_kind=_build_info_last[3]).set(0)
+                          device_kind=_build_info_last[3],
+                          native=_build_info_last[4]).set(0)
     BUILD_INFO.labels(version=current[0], torch=current[1],
-                      backend=current[2], device_kind=current[3]).set(1)
+                      backend=current[2], device_kind=current[3],
+                      native=current[4]).set(1)
     _build_info_last = current
 
 

@@ -165,6 +165,7 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
     exchange0 = len(group.recent_exchange)
     barrier0 = len(group.recent_barrier)
     routed0, counts0 = group.messages_routed, len(counts)
+    busy0, native0 = group.busy_steps, group.native_egress_steps
     current = plan["first"]
     for i, burst in enumerate(plan["bursts"]):
         if burst["popularity"] != current:
@@ -199,7 +200,9 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
         barrier=list(group.recent_barrier)[barrier0:],
         collectives=[c for c, _, _ in counts[counts0:]],
         launches_per_step=[n for _, n, _ in counts[counts0:]],
-        routed=group.messages_routed - routed0)
+        routed=group.messages_routed - routed0,
+        busy_steps=group.busy_steps - busy0,
+        native_egress_steps=group.native_egress_steps - native0)
     # the idle lockstep tick: the mean interval between the steps that
     # end in one quiet second
     idle0 = len(counts)
