@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
    gives them, and the torch and CUDA versions;
 2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc and,
    beside them, the native host routines from
-   ``pushcdn_tpu_torch/native/*.cpp`` with g++ (each one's seconds);
+   ``pushcdn_tpu_torch/native/*.cpp`` with g++ (the framing library, the
+   batch decoder and the cut-through route plan; each one's seconds);
 3. kernels vs plain — each CUDA kernel against its plain PyTorch version
    on the card, bit for bit, at edge shapes (the cases of
    ``pushcdn_tpu_torch/testing/kernel_cases.py``) and the main path's
@@ -55,16 +56,23 @@ Phases, each printing one JSON line:
    lane, 8 mask words, no idle bypass), 4096 users injected over the
    Memory transport as the test harness does it, 3 topics each of 256
    drawn uniform or zipf(1/rank); 64 of them publish bursts of 2048 frames
-   in the slice's mix, every payload ending in (publisher, seq, send
-   time), and every user's remote end drains and records what arrives.
-   Dense and ragged at uniform (4 bursts) and zipf (2 bursts), then the
-   uniform bursts through a broker with no device plane (the port's host
-   path on the same machine). Each run must deliver exactly the scalar
-   oracle's frames to every user, in publisher order within each lane,
-   route every delivery on the plane (``messages_routed``) without
-   disabling it, and launch its kernel; a dense run must egress every
-   busy step through ``native.egress_encode`` (``native_egress_steps``
-   equal to ``busy_steps``); one ``broker`` line per run;
+   in the slice's mix (8 publishers' frames a turn of the event loop),
+   every payload ending in (publisher, seq, send time), and every user's
+   remote end drains and records what arrives.
+   Dense and ragged at uniform and zipf (1 burst each), then the
+   same bursts through a broker with no device plane (the port's host
+   path on the same machine): uniform as the reference routes by default
+   (``PUSHCDN_ROUTE_CUTTHROUGH`` unset: the cut-through plane) and on its
+   scalar twin (``python``), zipf on the default. Each run must deliver
+   exactly the scalar oracle's frames to every user, in publisher order
+   within each lane; a plane run must route every delivery on the plane
+   (``messages_routed``) without disabling it, and launch its kernel; a
+   dense run must egress every busy step through ``native.egress_encode``
+   (``native_egress_steps`` equal to ``busy_steps``). Every publisher
+   frame must be counted by ``cdn_route_batch_frames`` under
+   ``path=cutthrough`` on a default host run, and under ``path=scalar``
+   on the twin and under a plane; one ``broker`` line per run, then one
+   ``broker_ratio`` line, each plane's msgs/s over each host run's;
 9. the cluster as processes, started as the README's quick start starts
    it: ``python -m pushcdn_tpu_torch.bin.marshal`` and ``python -m
    pushcdn_tpu_torch.bin.broker --device-plane`` as child processes on a
@@ -83,6 +91,8 @@ Phases, each printing one JSON line:
    launches of its kernel after the warm-up (none for the host path), its
    exit line the native host routines loaded and, on the dense run, every
    busy step egressed natively, and both children must exit 0 on SIGTERM;
+   the plane-less broker's ``/metrics`` must count frames under
+   ``cdn_route_batch_frames{path="cutthrough"}``, a plane broker's none;
    one ``cluster`` line per run;
 10. four broker shards serving users through the mesh group — phase 6's
    shape in brokers: a ``MeshBrokerGroup`` on the 4 shards folded onto the
@@ -97,7 +107,11 @@ Phases, each printing one JSON line:
    (3) on that group, shard 3's broker stopped, 1 uniform burst from the
    survivors' publishers (directs to its users take the host path and
    reach no one); (4) the same four brokers without a group, joined by
-   host links, 2 uniform bursts; (5) a small ``MeshCluster`` on the card,
+   host links, run 2's first burst, routed as the reference does by default
+   (every broker's user loops and broker links must plan frames through
+   the cut-through plane), then again on the scalar twin, with one
+   ``mesh_broker_ratio`` line (the fused group's msgs/s over each); (5) a
+   small ``MeshCluster`` on the card,
    a marshal and one authenticated ``Client`` per shard, a cross-shard
    broadcast and direct each arriving exactly once. Each run's deliveries
    must equal the scalar oracle's (as a multiset, and per publisher in
@@ -145,7 +159,18 @@ Phases, each printing one JSON line:
    burst against the Python prefix and scan, and ``pydecode`` against
    ``decode_frames``'s Python loop; every result equal, both sides timed
    on the host clock (median of repeats). One ``native`` line per
-   popularity.
+   popularity;
+13. the host routing plane on the card's host (appended after phase 12):
+   ``testing.routebench.forward_rate`` at the JAX package's defaults (8
+   receivers, 2000 msgs of 512 B, batches of 64, 3 trials), the plane
+   forced ``native`` against its scalar twin ``python``; the same with
+   4096 parked users and a churner flooding Subscribe / Unsubscribe, the
+   native row with in-place deltas and rebuilding per change; each row
+   delivering what its twin delivers through the path it names. Then one
+   ``RoutePlanner.plan`` call and one whole chunk over a 2048-frame burst
+   of phase 8's mix against phase 8's 4096-user table, its pairs equal to
+   the oracle's deliveries (host-clock medians). One ``route`` line per
+   row.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -196,7 +221,7 @@ MESH = dict(SLICE, shards=4, ring_slots=512, frame_bytes=2048,
 
 # the broker phase: the slice's users, topics and frame mix, published by
 # 64 of the users through a broker (bursts per popularity)
-BROKER = dict(SLICE, publishers=64, bursts={"uniform": 4, "zipf": 2},
+BROKER = dict(SLICE, publishers=64, bursts={"uniform": 1, "zipf": 1},
               ring_slots=2048, frame_bytes=2048, extra_lane=(16384, 64))
 # the cluster phase: the broker binary's own defaults (256 topics, a
 # 1024-slot plane with the 1024 x 2048 B lane and the 64 x 16384 B lane),
@@ -211,6 +236,17 @@ MESH_BROKER = dict(MESH, publishers=64)
 # slots a shard carry a 2048-frame burst in one tick; 64 publishers, 32
 # in each process
 MULTIHOST = dict(MESH, shards=8, processes=2, ring_slots=256, publishers=64)
+# the host routing plane's phase: testing.routebench.forward_rate at the
+# JAX package's defaults, and its churn row over a parked herd as large as
+# phase 8's users
+ROUTE = dict(receivers=8, msgs=2000, trials=3, payload=512, batch=64,
+             parked_users=4096)
+# publishers whose bursts go out in one turn of the event loop (phases 8
+# and 10). The broker routes a burst's chunks in the turn after they
+# arrive; 64 publishers' chunks in one turn made one turn of routing at
+# zipf on the host path outlast the transports' 5 s write and read
+# timeouts, which dropped receivers
+PUBLISH_GROUP = 8
 # every payload ends in (publisher, seq, send time in perf_counter ns)
 TAIL = struct.Struct("<IIq")
 BARRIER = 0xFFFFFFFF   # the publisher of a resubscription barrier
@@ -1110,14 +1146,33 @@ class BrokerScenario:
                      payload_bytes)
 
 
+ROUTE_PATHS = ("cutthrough", "residual", "scalar")
+
+
+def route_frames() -> dict:
+    """This process's ``cdn_route_batch_frames`` by path so far."""
+    from pushcdn_tpu_torch.proto import metrics
+    return {p: metrics.ROUTE_FRAMES.labels(path=p).value
+            for p in ROUTE_PATHS}
+
+
+def route_delta(before: dict) -> dict:
+    after = route_frames()
+    return {p: int(after[p] - before[p]) for p in ROUTE_PATHS}
+
+
 async def broker_run(impl: str, popularity: str, seed: int, device,
                      shape: dict) -> dict:
     """One run of the broker phase: a broker with a device plane of
-    ``impl`` on ``device`` (or none, ``impl="host"``), its users injected
-    over the Memory transport, the scenario's bursts published and
-    drained; every check of the run, then its numbers."""
+    ``impl`` on ``device``, or none: ``impl="host"`` routes as the
+    reference does by default (``PUSHCDN_ROUTE_CUTTHROUGH`` unset: the
+    cut-through plane), ``"host-scalar"`` takes the scalar twin
+    (``python``). Its users are injected over the Memory transport, the
+    scenario's bursts published and drained; every check of the run,
+    then its numbers."""
     from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
     from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.broker.tasks import cutthrough
     from pushcdn_tpu_torch.broker.test_harness import TestRun
     from pushcdn_tpu_torch.ops import delivery_kernel as dk
     from pushcdn_tpu_torch.ops import ragged_delivery as rd
@@ -1130,7 +1185,9 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
     U, base = shape["users"], shape["frame_bytes"]
     sc = BrokerScenario(popularity, seed, shape)
     bursts = [sc.burst() for _ in range(shape["bursts"][popularity])]
-    plane_cfg = None if impl == "host" else DevicePlaneConfig(
+    host = impl in ("host", "host-scalar")
+    route = "python" if impl == "host-scalar" else cutthrough.ROUTE_IMPL
+    plane_cfg = None if host else DevicePlaneConfig(
         num_user_slots=U, ring_slots=shape["ring_slots"], frame_bytes=base,
         extra_lanes=(shape["extra_lane"],), topic_words=shape["topic_words"],
         bypass_max_items=0, delivery_impl=impl, ragged_max_pages=4096)
@@ -1141,6 +1198,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
     # the JAX package's forwarding bench widens the in-process pipes the
     # same way, so 16 KB frames are not chopped into 8 KB writes
     prev_window = Memory.set_duplex_window(256 * 1024)
+    prev_route, cutthrough.ROUTE_IMPL = cutthrough.ROUTE_IMPL, route
     t_run = time.perf_counter()
     try:
         broker = await Broker.new(BrokerConfig(
@@ -1186,6 +1244,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
                       for uid, u in enumerate(run.connected_users)]
             dk.LAUNCHES = 0
             rd.LAUNCHES = 0
+            paths0 = route_frames()
             busy_s = 0.0
             want_total = 0
             try:
@@ -1196,6 +1255,8 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
                         stamp = struct.pack("<q", time.perf_counter_ns())
                         await run.user(pub).remote.send_raw_many(
                             [f[:-8] + stamp for f in pub_frames])
+                        if pub % PUBLISH_GROUP == PUBLISH_GROUP - 1:
+                            await asyncio.sleep(0)
                     async with asyncio.timeout(300):
                         while seen[0] < want_total:
                             await asyncio.sleep(0.002)
@@ -1207,6 +1268,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
                                    "frames arrived") from None
             finally:
                 launches = (dk.LAUNCHES, rd.LAUNCHES)
+                paths = route_delta(paths0)
                 for t in drains:
                     t.cancel()
                 ends = await asyncio.gather(*drains, return_exceptions=True)
@@ -1218,6 +1280,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
             await run.shutdown()
     finally:
         Memory.set_duplex_window(prev_window)
+        cutthrough.ROUTE_IMPL = prev_route
         if os.path.exists(db):
             os.remove(db)
 
@@ -1249,11 +1312,24 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
               f"{label}: the plane switched to {plane.delivery_impl}")
     else:
         check(launches == (0, 0), f"{label}: the host path launched a kernel")
+    # which path routed the publishers' frames (every one a Broadcast or a
+    # Direct): the cut-through plan on the reference's default host path,
+    # the scalar loops on its twin and under a plane (acquire refuses a
+    # broker with a plane)
+    sent = sum(len(f) for b in bursts for f in b.frames)
+    want_paths = ({"cutthrough": sent, "residual": 0, "scalar": 0}
+                  if impl == "host"
+                  else {"cutthrough": 0, "residual": 0, "scalar": sent})
+    check(paths == want_paths, f"{label}: route {route} routed the "
+          f"publishers' {sent} frames by path {paths}, not {want_paths}")
     lat_ms = np.asarray(latency_ns, np.float64) / 1e6
     return dict(
-        impl=impl, popularity=popularity,
+        impl=impl, popularity=popularity, route=route,
+        cdn_route_batch_frames=paths,
         path="device plane" if plane is not None
-        else "the port's host path, same machine",
+        else "the port's host path (cut-through plane), same machine"
+        if impl == "host" else "the port's host path (scalar twin), same "
+        "machine",
         users=U, topics=shape["topics"], publishers=shape["publishers"],
         bursts=len(bursts), frames_per_burst=shape["frames"],
         deliveries=len(want), matches_oracle=True,
@@ -1292,13 +1368,16 @@ def plane_stats(plane) -> dict:
 
 def phase_broker(device, shape: dict = BROKER):
     """Phase 8: dense and ragged at uniform and zipf interest, then the
-    uniform bursts with no device plane. Returns each run's line and the
-    kernels' launches over the device runs' traffic; fails unless each
-    device run launched its kernel."""
+    same bursts with no device plane: uniform on the reference's default
+    host path (the cut-through plane) and on its scalar twin, zipf on the
+    default. Returns each run's line and the kernels' launches over the
+    device runs' traffic; fails unless each device run launched its
+    kernel."""
     rows = {}
     for impl, popularity in (("dense", "uniform"), ("dense", "zipf"),
                              ("ragged", "uniform"), ("ragged", "zipf"),
-                             ("host", "uniform")):
+                             ("host", "uniform"), ("host-scalar", "uniform"),
+                             ("host", "zipf")):
         # one seed per popularity: every impl takes the same bursts
         seed = 40 + (popularity == "zipf")
         rows[(impl, popularity)] = row = asyncio.run(
@@ -1316,6 +1395,15 @@ def phase_broker(device, shape: dict = BROKER):
             check(row["ragged_delivery_cuda"] > 0 and row["ragged_steps"] > 0,
                   f"broker ragged/{popularity} never launched "
                   "ragged_delivery_cuda")
+    # the planes' delivered msgs/s over each host path's on the same
+    # bursts (reported, not claimed)
+    rate = {k: r["delivered_msgs_per_s"] for k, r in rows.items()}
+    emit("broker_ratio", **{
+        f"{impl}_{pop}_over_{host}": rate[(impl, pop)] / rate[(host, pop)]
+        for impl in ("dense", "ragged") for pop in ("uniform", "zipf")
+        for host in ("host", "host-scalar") if (host, pop) in rate},
+        host_over_host_scalar_uniform=rate[("host", "uniform")]
+        / rate[("host-scalar", "uniform")])
     launches = {"dense": sum(r["delivery_matrix_cuda"] for r in rows.values()),
                 "ragged": sum(r["ragged_delivery_cuda"] for r in rows.values())}
     return rows, launches
@@ -1631,6 +1719,8 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         check(scraped is not None and scraped[0] == 200,
               f"{label}: the broker's /metrics did not answer")
         routed_metric = metric(scraped[1], "cdn_device_messages_routed")
+        route = {p: metric(scraped[1], f'cdn_route_batch_frames{{path="{p}"}}')
+                 for p in ROUTE_PATHS}
         for c in clients:
             c.close()
         kids.terminate(label)
@@ -1671,7 +1761,12 @@ async def cluster_run(impl: str, seed: int, shape: dict,
               f"{label}: the host-path broker launched a kernel")
         check(routed_metric == 0 and "messages_routed" not in exit_fields,
               f"{label}: a host-path broker routed on a plane")
+        # the plane-less broker routes as the reference's does by default
+        check(route["cutthrough"] > 0, f"{label}: /metrics shows "
+              f"cdn_route_batch_frames {route}: no cut-through")
     else:
+        check(route["cutthrough"] == 0, f"{label}: a broker with a plane "
+              f"planned {route['cutthrough']} frames through cut-through")
         check(routed_metric > 0, f"{label}: /metrics shows "
               "cdn_device_messages_routed 0")
         check(routed_metric == exit_fields["messages_routed"],
@@ -1695,7 +1790,7 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         impl=impl,
         popularity="uniform, then zipf" if impl != "host" else "uniform",
         path="device plane in the broker process" if kernel
-        else "the port's host path, same machine",
+        else "the port's host path (cut-through plane), same machine",
         clients=U, transport="tcp+tls", topics=shape["topics"],
         publishers=P, frames_per_burst=shape["frames"],
         startup_s=startup_s, auth_s=auth_s, resubscribe_s=resubscribe_s,
@@ -1708,6 +1803,7 @@ async def cluster_run(impl: str, seed: int, shape: dict,
                     **percentiles_ms(r["latency_ns"]))
             for k, r in runs.items()},
         messages_routed=routed_metric,
+        cdn_route_batch_frames=route,
         routed_share=routed_metric / (len(want) + barriers),
         steps=exit_fields.get("steps"),
         native=exit_fields["native"],
@@ -1916,6 +2012,8 @@ class MeshBrokers:
                     stamp = struct.pack("<q", time.perf_counter_ns())
                     await self.remotes[pubs[j]].send_raw_many(
                         [f[:-8] + stamp for f in pub_frames])
+                    if j % PUBLISH_GROUP == PUBLISH_GROUP - 1:
+                        await asyncio.sleep(0)
                 async with asyncio.timeout(300):
                     while self.seen[0] < want:
                         await asyncio.sleep(0.002)
@@ -1983,6 +2081,38 @@ def check_deliveries(label: str, got, got_direct, got_bytes, bursts) -> None:
               f"{label}: user {uid} got a publisher's frames out of order")
 
 
+class PlanTally:
+    """While installed, counts the frames each ``RoutePlanner`` planned,
+    by mode: 0 a user's chunk, 1 a broker link's."""
+
+    def __init__(self):
+        self.frames = {}
+
+    def __enter__(self):
+        from pushcdn_tpu_torch.native.routeplan import RoutePlanner
+        self.cls, plan = RoutePlanner, RoutePlanner.plan
+        frames = self.frames
+
+        def counted(planner, buf, offs, lens, start, mode):
+            out = plan(planner, buf, offs, lens, start, mode)
+            key = (id(planner), mode)
+            frames[key] = frames.get(key, 0) + out[0]
+            return out
+
+        self.plan, RoutePlanner.plan = plan, counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.plan = self.plan
+
+    def of(self, broker) -> dict:
+        """Frames ``broker``'s cut-through state planned, by origin."""
+        state = getattr(broker, "_route_state", None)
+        key = id(state.planner) if state is not None else None
+        return {"user": self.frames.get((key, 0), 0),
+                "broker": self.frames.get((key, 1), 0)}
+
+
 class CollectiveCounter:
     """Wraps a group's mesh step and counts the collectives of each call
     (``router.trace_collectives``)."""
@@ -2005,6 +2135,7 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
     3's broker stopped; (4) the same brokers with no group, over host
     links; (5) a small ``MeshCluster`` with real clients. Returns each
     run's line."""
+    from pushcdn_tpu_torch.broker.tasks import cutthrough
     from pushcdn_tpu_torch.ops import delivery_kernel as dk
     from pushcdn_tpu_torch.proto.transport.memory import Memory
 
@@ -2134,35 +2265,69 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
         rows["survivors"]["run_s"] = time.perf_counter() - t
         emit("mesh_broker", **rows["survivors"])
 
-        # 4. the same brokers without a group, joined by host links
-        t = time.perf_counter()
-        mb = MeshBrokers("meshbroker-host-links", shape,
-                         BrokerScenario("uniform", seed + 1, shape), devices,
-                         group=False)
-        await mb.start()
-        try:
-            since = mb.mark()
-            bursts = [mb.sc.burst(pubs) for _ in range(2)]
-            dk.LAUNCHES = 0
-            busy = await mb.publish("mesh broker host links", bursts, pubs)
-            mb.check_oracle("mesh broker host links", bursts, since)
-            check(dk.LAUNCHES == 0,
-                  "mesh broker host links: the host path launched a kernel")
-            deliveries = sum(len(b.codes) for b in bursts)
-            rows["host-links"] = dict(
-                run="host links, no group", shards=B, users=U,
-                topics=shape["topics"], publishers=P,
-                bursts={"uniform": 2}, frames_per_burst=shape["frames"],
-                deliveries=deliveries, matches_oracle=True,
-                fifo_per_publisher_and_lane=True,
-                delivered_msgs_per_s=deliveries / busy,
-                **percentiles_ms(mb.latency_ns), busy_s=busy,
-                host_links=[b.connections.num_brokers for b in mb.brokers],
-                routed_share=0.0, delivery_matrix_cuda=0)
-        finally:
-            await mb.shutdown()
-        rows["host-links"]["run_s"] = time.perf_counter() - t
-        emit("mesh_broker", **rows["host-links"])
+        # 4. the same brokers without a group, joined by host links, run 2's
+        # first burst: on the reference's default host path (the
+        # cut-through plane, on the users' loops and on the broker links)
+        # and on its scalar twin
+        for key, route in (("host-links", None),
+                           ("host-links-scalar", "python")):
+            label = f"mesh broker {key}"
+            t = time.perf_counter()
+            mb = MeshBrokers(f"meshbroker-{key}", shape,
+                             BrokerScenario("uniform", seed + 1, shape),
+                             devices, group=False)
+            prev_route = cutthrough.ROUTE_IMPL
+            cutthrough.ROUTE_IMPL = route or prev_route
+            try:
+                with PlanTally() as tally:
+                    await mb.start()
+                    since = mb.mark()
+                    bursts = [mb.sc.burst(pubs)]
+                    dk.LAUNCHES = 0
+                    paths0 = route_frames()
+                    busy = await mb.publish(label, bursts, pubs)
+                    paths = route_delta(paths0)
+                mb.check_oracle(label, bursts, since)
+                check(dk.LAUNCHES == 0,
+                      f"{label}: the host path launched a kernel")
+                planned = [tally.of(b) for b in mb.brokers]
+                if route is None:
+                    check(all(p["user"] > 0 and p["broker"] > 0
+                              for p in planned), f"{label}: frames planned "
+                          f"through cut-through per broker {planned}: a "
+                          "user loop or a broker link took the scalar twin")
+                else:
+                    check(paths["cutthrough"] == paths["residual"] == 0
+                          and not any(p["user"] or p["broker"]
+                                      for p in planned),
+                          f"{label}: the scalar twin planned {paths}")
+                deliveries = sum(len(b.codes) for b in bursts)
+                rows[key] = dict(
+                    run=f"host links, no group, route "
+                    f"{cutthrough.ROUTE_IMPL}", shards=B, users=U,
+                    topics=shape["topics"], publishers=P,
+                    bursts={"uniform": 1}, frames_per_burst=shape["frames"],
+                    deliveries=deliveries, matches_oracle=True,
+                    fifo_per_publisher_and_lane=True,
+                    delivered_msgs_per_s=deliveries / busy,
+                    **percentiles_ms(mb.latency_ns), busy_s=busy,
+                    host_links=[b.connections.num_brokers
+                                for b in mb.brokers],
+                    cdn_route_batch_frames=paths,
+                    cutthrough_frames_per_broker=planned,
+                    routed_share=0.0, delivery_matrix_cuda=0)
+            finally:
+                cutthrough.ROUTE_IMPL = prev_route
+                await mb.shutdown()
+            rows[key]["run_s"] = time.perf_counter() - t
+            emit("mesh_broker", **rows[key])
+        # the fused group over the host links on the same bursts (reported,
+        # not claimed)
+        fused = rows["fused"]["delivered_msgs_per_s"]
+        emit("mesh_broker_ratio", fused_over_host_links=fused
+             / rows["host-links"]["delivered_msgs_per_s"],
+             fused_over_host_links_scalar=fused
+             / rows["host-links-scalar"]["delivered_msgs_per_s"])
     finally:
         Memory.set_duplex_window(prev_window)
 
@@ -3037,6 +3202,140 @@ def phase_native(matrices: dict, shape: dict = BROKER) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the host routing plane (cut-through) on the card's host
+# ---------------------------------------------------------------------------
+
+
+def chunk_of(frames) -> tuple:
+    """One receive chunk of ``frames``: the buffer as the wire carries them
+    (a 4-byte big-endian length before each) and each frame's offset and
+    length."""
+    buf = bytearray()
+    offs, lens = [], []
+    for f in frames:
+        offs.append(len(buf) + 4)
+        lens.append(len(f))
+        buf += len(f).to_bytes(4, "big") + f
+    return bytes(buf), np.asarray(offs, np.int64), np.asarray(lens, np.int64)
+
+
+def plan_chunk(planner, buf, offs, lens) -> tuple:
+    """Plan every frame of one chunk in user-origin mode, resuming after
+    capacity stops as the drain does: (calls, peers, frames)."""
+    peers, frames = [], []
+    pos = calls = 0
+    while pos < len(offs):
+        consumed, stop, p, f = planner.plan(buf, offs, lens, pos, 0)
+        calls += 1
+        peers.append(p.copy())
+        frames.append(f.copy())
+        pos += consumed
+        check(consumed > 0 or stop == 0, "route plan made no progress")
+        if stop != 2:   # STOP_CAPACITY resumes; a residual stop ends it
+            break
+    return calls, np.concatenate(peers), np.concatenate(frames)
+
+
+def phase_route(shape: dict = BROKER, bench: dict = ROUTE) -> dict:
+    """Phase 13: the host routing plane that a broker without a device
+    plane routes through. ``testing.routebench.forward_rate`` (one
+    publisher fanning 512 B broadcasts to 8 subscribed receivers through
+    an injected broker) with the plane forced ``native`` against its
+    scalar twin ``python``, then again with a herd of 4096 parked users
+    and a churner flooding Subscribe / Unsubscribe, the native row once
+    with in-place deltas and once rebuilding per change; each row must
+    deliver what its python twin delivers, through the path it names.
+    Then one ``RoutePlanner.plan`` call, and the whole chunk, over a
+    2048-frame burst of phase 8's mix against phase 8's 4096-user table
+    (median of repeats on the host clock), its pairs equal to the
+    oracle's deliveries. One ``route`` line per row."""
+    from pushcdn_tpu_torch.native import routeplan
+    from pushcdn_tpu_torch.proto import flowclass
+    from pushcdn_tpu_torch.testing.routebench import forward_rate
+
+    check(routeplan.available(), "route_plan did not build")
+    plain = {k: v for k, v in bench.items() if k != "parked_users"}
+    churn = dict(parked_users=bench["parked_users"], churn=True)
+    rows = {}
+    for row, impl, kw in (
+            ("forward", "python", {}), ("forward", "native", {}),
+            ("churn", "python", churn),
+            ("churn incremental", "native", dict(churn, incremental=True)),
+            ("churn rebuild", "native", dict(churn, incremental=False))):
+        label = f"route {row} {impl}"
+        t_run = time.perf_counter()
+        paths0 = route_frames()
+        out = asyncio.run(forward_rate(impl, **plain, **kw))
+        paths = route_delta(paths0)
+        check(out is not None, f"{label}: no row (route_plan missing)")
+        delivered = out["msgs"] * out["receivers"] * len(out["trials"])
+        sent = out["msgs"] * len(out["trials"])
+        twin = rows.get((row.split()[0], "python"))
+        if impl == "python":
+            check(paths["cutthrough"] == paths["residual"] == 0,
+                  f"{label}: the scalar twin planned {paths}")
+        else:
+            check(paths["cutthrough"] >= sent * (row != "churn rebuild"),
+                  f"{label}: {paths} for {sent} published frames")
+            check(delivered == twin["delivered_frames"],
+                  f"{label}: delivered {delivered} frames, its python twin "
+                  f"{twin['delivered_frames']}")
+        summary = out.get("route_summary") or {}
+        rows[(row, impl)] = r = dict(
+            row=row, impl=impl, receivers=out["receivers"],
+            msgs=out["msgs"], trials=len(out["trials"]),
+            payload=out["payload"], batch=bench["batch"],
+            parked_users=kw.get("parked_users", 0),
+            delivered_frames=delivered,
+            msgs_per_s_median=out["median"],
+            msgs_per_s_trials=out["trials"],
+            delivered_msgs_per_s=out["delivered"],
+            churn_ops_s=out.get("churn_ops_s"),
+            rebuilds=summary.get("rebuilds"),
+            deltas_applied=summary.get("deltas_applied"),
+            cdn_route_batch_frames=paths,
+            over_python=(out["delivered"] / twin["delivered_msgs_per_s"]
+                         if twin else None),
+            matches_python_twin=True, run_s=time.perf_counter() - t_run)
+        emit("route", **r)
+
+    # one plan call and one whole chunk against phase 8's table
+    sc = BrokerScenario("uniform", 40, shape)
+    burst = sc.burst()
+    P, n, base = shape["publishers"], shape["frames"], shape["frame_bytes"]
+    frames = [burst.frames[i % P][i // P] for i in range(n)]
+    buf, offs, lens = chunk_of(frames)
+    U = shape["users"]
+    masks = np.stack([routeplan.topic_mask(t) for t in sc.topics])
+    planner = routeplan.RoutePlanner.create()
+    check(planner.build(U, 0, routeplan.topic_mask(range(shape["topics"])),
+                        masks, list(sc.keys), np.arange(U, dtype=np.int32))
+          and planner.set_classes(flowclass.active_table()),
+          "route plan: the table did not build")
+    calls, peers, idx = plan_chunk(planner, buf, offs, lens)
+    tails = np.asarray([TAIL.unpack_from(f, len(f) - TAIL.size)[:2]
+                        + (len(f) > base,) for f in frames], np.int64)
+    low = ((tails[:, 0] * 2 + tails[:, 2]) << 32) | tails[:, 1]
+    codes = (peers.astype(np.int64) << 40) | low[idx]
+    check(np.array_equal(np.sort(codes), np.sort(burst.codes)),
+          f"route plan: {len(codes)} pairs against the oracle's "
+          f"{len(burst.codes)} deliveries")
+    first = planner.plan(buf, offs, lens, 0, 0)[0]
+    reps = 50
+    row = dict(row="plan", users=U, topics=shape["topics"], frames=n,
+               chunk_bytes=len(buf), pairs=len(codes), matches_oracle=True,
+               calls_per_chunk=calls, frames_first_call=first,
+               plan_call_ms=host_ms(
+                   lambda: planner.plan(buf, offs, lens, 0, 0), reps),
+               chunk_ms=host_ms(
+                   lambda: plan_chunk(planner, buf, offs, lens), reps),
+               reps=reps)
+    emit("route", **row)
+    rows["plan"] = row
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3067,6 +3366,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
+    # seconds per phase, reported on a line of their own
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: int) -> None:
+        now = time.perf_counter()
+        laps[phase] = laps.get(phase, 0.0) + now - t_lap[0]
+        t_lap[0] = now
+
     # 1. device
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
@@ -3079,6 +3387,7 @@ def main() -> int:
          python=sys.version.split()[0], sms=sms, max_sm_clock_mhz=clock_mhz,
          int32_ops_per_s=peak_ops, bytes_per_s=PEAK_BYTES_PER_S)
 
+    lap(1)
     # 2. build (one nvcc per source, started together; the native host
     # routines with g++ beside them)
     from pushcdn_tpu_torch import native
@@ -3102,9 +3411,11 @@ def main() -> int:
          native_libraries=[os.path.relpath(p, HERE)
                            for p in host_libs.values()])
 
+    lap(2)
     # 3. kernels vs plain
     errs = phase_kernels_vs_plain(device)
 
+    lap(3)
     # 4. the slice at full size; the launch counts are this phase's
     dk.LAUNCHES = 0
     rd.LAUNCHES = 0
@@ -3138,15 +3449,18 @@ def main() -> int:
     check(launches["dense"] > 0, "the slice never launched delivery_matrix_cuda")
     check(launches["ragged"] > 0, "the slice never launched ragged_delivery_cuda")
 
+    lap(4)
     # 5. the bench.py shape
     bench_args = phase_bench_shape(device)
 
+    lap(5)
     # 6. the mesh tick; the dense kernel's launch count is this phase's
     folded = [f"cuda:{device.index}"] * MESH["shards"]
     mesh_steps, mesh_captured, mesh_recorded, mesh_per_tick, \
         mesh_launches = phase_mesh(folded)
     launches["dense"] += mesh_launches
 
+    lap(6)
     # 7. times
     timing = {}
     for popularity in ("uniform", "zipf"):
@@ -3228,22 +3542,26 @@ def main() -> int:
              shard_step_ms=shard_step[0], shard_step_wall_ms=shard_step[1],
              pairs_median=float(np.median(r[:, 4])))
 
+    lap(7)
     # 8. the broker; its device runs' launches join the kernel line's
     _, broker_launches = phase_broker(device)
     launches["dense"] += broker_launches["dense"]
     launches["ragged"] += broker_launches["ragged"]
 
+    lap(8)
     # 9. the cluster as processes; the broker processes' launches over
     # their runs' traffic join the kernel line's
     _, cluster_launches = phase_cluster()
     launches["dense"] += cluster_launches["dense"]
     launches["ragged"] += cluster_launches["ragged"]
 
+    lap(9)
     # 10. four broker shards serving users through the mesh group; the
     # group runs' launches join the kernel line's
     _, mesh_broker_launches = phase_mesh_broker(folded)
     launches["dense"] += mesh_broker_launches
 
+    lap(10)
     # 11. the multi-host group: two processes step one global mesh; the
     # worker processes' launches on its main path join the kernel line's
     _, multihost_launches, mh_args = phase_multihost(device)
@@ -3263,6 +3581,7 @@ def main() -> int:
          write_floor_ms=write_floor_ms(U, N, device),
          **bound(*dense_work(*args), peak_ops))
 
+    lap(11)
     # 12. the native host routines on phase 4's dense matrices (a base-lane
     # launch of each popularity's run, recomputed by the plain version)
     matrices = {}
@@ -3272,6 +3591,13 @@ def main() -> int:
         matrices[popularity] = dk.delivery_matrix_reference(
             *args).cpu().numpy()
     phase_native(matrices)
+
+    lap(12)
+    # 13. the host routing plane on the card's host
+    phase_route()
+    lap(13)
+    emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
+         total=sum(laps.values()))
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's, the

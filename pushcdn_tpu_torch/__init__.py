@@ -26,14 +26,21 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
   TCP+TLS transports, copied from the JAX package
 - ``native`` — the port's own copies of the JAX package's C++ host
   routines (ring packer, wire scanner and encoder, the planes' egress
-  encoder, the batch decoder), built with ``g++`` at first use
+  encoder, the batch decoder), built with ``g++`` at first use; and
+  ``native.routeplan``, the cut-through route plan's binding
+- ``broker.tasks.cutthrough`` — the cut-through routing plane: a broker
+  without a device plane routes whole received chunks with one
+  ``RoutePlanner.plan`` call against its incrementally kept route table
+  (``RouteState``), as the JAX package's does by default
+  (``PUSHCDN_ROUTE_CUTTHROUGH``); ``testing.routebench`` measures it
+  against the scalar loops
 - ``marshal``, ``client``, ``testing.cluster`` and ``bin`` — the marshal,
   the elastic client, the in-process cluster and the ``broker``,
   ``marshal`` and ``client`` binaries, copied the same way
 
-The package imports torch and numpy only (``native`` and the host-only
-processes not even torch): nothing of JAX and nothing of
-``pushcdn_tpu``. Entry points run on ``cuda`` unless the caller passes
+The package imports torch and numpy only (``native``, ``routeplan``
+among it, and the host-only processes not even torch): nothing of JAX
+and nothing of ``pushcdn_tpu``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; they never fall back to the CPU on their own.
 """
 

@@ -21,10 +21,12 @@ Latency accounting: each frame's pool permit lives from socket-read to
 last-fan-out-write; its lifetime feeds the LATENCY histogram
 (limiter.AllocationPermit), mirroring the reference's latency proxy.
 
-A copy of ``pushcdn_tpu.broker.tasks.handlers`` without the cut-through
-plane (native route plan) and the sharded data plane's handoff ring: the
-receive loops always take the scalar loops below, as the JAX package's do
-while a device plane is attached.
+A copy of ``pushcdn_tpu.broker.tasks.handlers`` without the sharded data
+plane's handoff ring. Each receive loop first asks the cut-through plane
+(``cutthrough.acquire``: the native route plan, no device plane, the
+default hook) and, when it is eligible, routes whole ``FrameChunk`` batches
+through it; otherwise, and for ``PUSHCDN_ROUTE_CUTTHROUGH=python``, it
+runs the scalar loop below, which stays the correctness twin.
 """
 
 from __future__ import annotations
@@ -151,7 +153,7 @@ class EgressBatch:
         # class volume was already counted at the routing decision
         # (route_direct/route_broadcast, one count per fan-out pair), so
         # the writer entries carry nframes=0/nbytes=0 and only observe
-        # queue delay
+        # queue delay — same suppression the cut-through plan path uses
         if len(frames) < 2:  # depth-1: nothing to coalesce, skip probing
             await conn.send_raw_many(frames, nframes=0, nbytes=0)
             return
@@ -419,11 +421,24 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
     kicked (user/handler.rs:104-161). Messages are drained and routed in
     batches: one ``recv_raw_many`` wakeup routes every pending frame, and
     the fan-out goes out as per-peer ``send_raw_many`` batches."""
+    from pushcdn_tpu_torch.broker.tasks import cutthrough  # lazy: import cycle
     hook = broker.run_def.user_def.hook
     topics = broker.run_def.topics
     alive = True
     try:
         while alive:
+            # Cut-through plane: when eligible (native kernel compiled, no
+            # device plane, default hook), whole FrameChunk batches route
+            # via one plan call with zero per-frame Python — the scalar
+            # body below is the correctness twin (and the path control
+            # frames always take).
+            cut = cutthrough.acquire(broker, hook)
+            if cut is not None:
+                items = await connection.recv_frames()
+                alive = await cut.route_drain(public_key, items,
+                                              is_user=True,
+                                              conn=connection)
+                continue
             raws = await connection.recv_raw_many()
             metrics_mod.ROUTE_SCALAR_FRAMES.inc(len(raws))
             egress = EgressBatch(broker)
@@ -603,11 +618,21 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                               connection) -> None:
     """Pump a peer broker's messages (broker/handler.rs:121-193), batched
     the same way as the user loop."""
+    from pushcdn_tpu_torch.broker.tasks import cutthrough  # lazy: import cycle
     hook = broker.run_def.broker_def.hook
     topics = broker.run_def.topics
     alive = True
     try:
         while alive:
+            # same cut-through seam as the user loop (broker-origin mode:
+            # local-users-only broadcast, to_user_only direct)
+            cut = cutthrough.acquire(broker, hook)
+            if cut is not None:
+                items = await connection.recv_frames()
+                alive = await cut.route_drain(identifier, items,
+                                              is_user=False,
+                                              conn=connection)
+                continue
             raws = await connection.recv_raw_many()
             metrics_mod.ROUTE_SCALAR_FRAMES.inc(len(raws))
             egress = EgressBatch(broker)

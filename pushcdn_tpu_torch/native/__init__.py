@@ -1,6 +1,7 @@
 """ctypes bindings for the host routines in C++ (``framing.cpp`` and
 ``pydecode.cpp`` beside this file): the ring packer, the wire scanner and
-encoder, the device plane's egress encoder and the batch decoder.
+encoder, the device plane's egress encoder and the batch decoder. The
+cut-through route plan (``route_plan.cpp``) binds in ``routeplan``.
 
 The port's own copy of ``pushcdn_tpu.native``: it builds from the sources
 in this directory and never from the JAX package's. These are host
@@ -177,17 +178,19 @@ def _pydecode_abi() -> str:
 
 
 def library_paths() -> dict:
-    """Where each of this module's libraries builds to, by source name."""
+    """Where each of this package's libraries builds to, by source name."""
     return {"framing": library_path("framing"),
             "pydecode": library_path("pydecode", _pydecode_flags(),
-                                     _pydecode_abi())}
+                                     _pydecode_abi()),
+            "route_plan": library_path("route_plan")}
 
 
 def build() -> dict:
-    """Build and load both libraries now (a no-op once loaded). Returns
-    their paths; raises with the compiler's output when either failed."""
-    ok = available() and pydecode() is not None
-    if not ok:
+    """Build and load every library now (a no-op once loaded). Returns
+    their paths; raises with the compiler's output when any failed."""
+    from pushcdn_tpu_torch.native import routeplan
+    ok = [available(), pydecode() is not None, routeplan.available()]
+    if not all(ok):
         raise RuntimeError(f"native host routines failed to build: "
                            f"{build_errors()}")
     return library_paths()

@@ -27,8 +27,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
-
-from pushcdn_tpu.broker.tasks import cutthrough
+from _torch_libs import jax_routeplan_available
 
 USERS = 40
 PUBLISHERS = 8
@@ -49,7 +48,8 @@ def _pkg(name: str) -> SimpleNamespace:
     return SimpleNamespace(
         name=name, broker=mod("broker.broker"),
         plane=mod("broker.device_plane"), harness=mod("broker.test_harness"),
-        handlers=mod("broker.tasks.handlers"), def_=mod("proto.def_"),
+        handlers=mod("broker.tasks.handlers"),
+        cutthrough=mod("broker.tasks.cutthrough"), def_=mod("proto.def_"),
         topic=mod("proto.topic"), sig=mod("proto.crypto.signature"),
         memory=mod("proto.transport.memory"), util=mod("proto.util"),
         msg=mod("proto.message"))
@@ -230,11 +230,25 @@ async def _serve(p, impl: str, topics, rounds):
         await run.shutdown()
 
 
-@pytest.mark.parametrize("impl", ["dense", "ragged", "host"])
-async def test_broker_delivers_what_the_jax_broker_delivers(impl,
+def _cutthrough_frames(name: str) -> float:
+    root = {"jax": "pushcdn_tpu", "port": "pushcdn_tpu_torch"}[name]
+    metrics = importlib.import_module(f"{root}.proto.metrics")
+    return metrics.ROUTE_CUTTHROUGH_FRAMES.value
+
+
+@pytest.mark.parametrize("impl,route", [
+    pytest.param("dense", "python", id="dense"),
+    pytest.param("ragged", "python", id="ragged"),
+    pytest.param("host", "python", id="host"),
+    pytest.param("host", "auto", id="host-auto")])
+async def test_broker_delivers_what_the_jax_broker_delivers(impl, route,
                                                             monkeypatch):
-    # the JAX receive loops take the scalar twin, as they do with a plane
-    monkeypatch.setattr(cutthrough, "ROUTE_IMPL", "python")
+    # a broker with a plane takes the scalar twin on both packages; the
+    # host path runs the scalar twin (python) and the reference's default
+    # (auto: the cut-through plane) on both
+    assert route == "python" or jax_routeplan_available()
+    for name in ("port", "jax"):
+        monkeypatch.setattr(_pkg(name).cutthrough, "ROUTE_IMPL", route)
     topics, rounds = _scenario(seed={"dense": 1, "ragged": 2, "host": 3}[impl])
     frames_meta = [fm for batches in rounds for b in batches for fm in b]
     meta = dict(frames_meta)
@@ -242,9 +256,17 @@ async def test_broker_delivers_what_the_jax_broker_delivers(impl,
     assert {"base", "wide", "host"} <= set(path.values()) or impl == "host"
     got = {}
     planes = {}
+    cut = {}
     for name in ("port", "jax"):
+        before = _cutthrough_frames(name)
         got[name], planes[name] = await _serve(_pkg(name), impl, topics,
                                                rounds)
+        cut[name] = _cutthrough_frames(name) - before
+    if route == "auto":
+        # both brokers planned their publishers' chunks through the plane
+        assert cut["port"] > 0 and cut["jax"] > 0, cut
+    else:
+        assert cut == {"port": 0, "jax": 0}, cut
     for key, frames in want.items():
         for name in ("port", "jax"):
             assert Counter(got[name][key]) == Counter(frames), (name, key)

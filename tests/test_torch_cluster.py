@@ -17,6 +17,7 @@ import importlib
 from types import SimpleNamespace
 
 import pytest
+from _torch_libs import jax_routeplan_available
 
 PACKAGES = ("jax", "port")
 SCENARIO_TIMEOUT_S = 50     # per package; the suite caps a test at 120 s
@@ -35,13 +36,14 @@ def _pkg(name: str) -> SimpleNamespace:
         return testing.Cluster(**kw, **extra)
 
     return SimpleNamespace(
-        name=name, cluster=cluster, wait_until=testing.wait_until,
+        name=name, root=root, cluster=cluster, wait_until=testing.wait_until,
         client=mod("client"), user_auth=mod("proto.auth.user"),
         sig=mod("proto.crypto.signature"),
         embedded=mod("proto.discovery.embedded"), error=mod("proto.error"),
         msg=mod("proto.message"), memory=mod("proto.transport.memory"),
         plane=mod("broker.device_plane"), topic=mod("proto.topic"),
-        sync=mod("broker.tasks.sync"))
+        sync=mod("broker.tasks.sync"),
+        cutthrough=mod("broker.tasks.cutthrough"))
 
 
 def _kind(p, m) -> str:
@@ -470,61 +472,82 @@ async def test_subscribe_pattern_with_bound_names_matches_jax(monkeypatch):
     """With ``PUSHCDN_TOPIC_NAMES`` bound, ``subscribe_pattern`` subscribes
     the bound topics the pattern covers on both packages, interest crosses
     the broker link, and the bound names set the flow classes the ledger
-    counts by: the same per-class fates and the same per-link counts."""
-    from pushcdn_tpu.broker.tasks import cutthrough
-
+    counts by: the same per-class fates and the same per-link counts, on
+    the scalar twin (route ``python``) and on the reference's default
+    (``auto``: the cut-through plane on these plane-less brokers)."""
     monkeypatch.setenv("PUSHCDN_TOPIC_NAMES", TOPIC_NAMES)
-    # the JAX receive loops take the scalar twin, which the port copies
-    monkeypatch.setattr(cutthrough, "ROUTE_IMPL", "python")
-    out = {}
-    for name in PACKAGES:
-        p = _pkg(name)
-        ledger = importlib.import_module(
-            {"jax": "pushcdn_tpu", "port": "pushcdn_tpu_torch"}[name]
-            + ".proto.ledger")
-        async with asyncio.timeout(SCENARIO_TIMEOUT_S):
-            cluster = await p.cluster(
-                num_brokers=2, topics=p.topic.TopicSpace.range(8)).start()
-            try:
-                alice, bob = await _two_homes(p, cluster, (93, 94), [])
-                home = cluster.brokers[1]     # alice's broker
-                await asyncio.sleep(0.2)
-                ledger.reset_for_tests()
-                await alice.subscribe_pattern("consensus.*")
-                await p.wait_until(lambda: home.connections.user_topics
-                                   .get_values_of_key(alice.public_key))
-                topics = sorted(home.connections.user_topics
-                                .get_values_of_key(alice.public_key))
-                await p.sync.partial_topic_sync(home)
-                await p.wait_until(lambda: len(cluster.brokers[0].connections
-                                               .get_interested_by_topic(
-                                                   [2], False)[1]) == 1)
-                for t in (1, 3, 2):
-                    await bob.send_broadcast_message([t], b"topic %d" % t)
-                await bob.send_direct_message(alice.public_key, b"marker")
-                got = [await _recv(p, alice) for _ in range(3)]
-                assert got == [["broadcast", b"topic 1"],
-                               ["broadcast", b"topic 2"],
-                               ["direct", b"marker"]]
-                await asyncio.sleep(0.2)
-                led = ledger.LEDGER
-                out[name] = dict(
-                    topics=topics, got=got,
-                    fates={"/".join(k): v for k, v in led.fates.items()},
-                    ingress=led.ingress,
-                    link_sent=sorted(led.link_sent.values()),
-                    link_recv=sorted(led.link_recv.values()))
-                alice.close()
-                bob.close()
-            finally:
-                await cluster.stop()
-    assert out["jax"]["topics"] == [1, 2]
-    # the bound names' classes: the two consensus.* broadcasts crossed
-    # the link as consensus, the unheard bulk.blob one dropped as bulk
-    consensus, bulk = 1, 3
-    assert sorted(row[consensus] for row in out["jax"]["link_sent"]) == [0, 2]
-    assert out["jax"]["fates"]["dropped/no_interest"][bulk] == 1
-    assert out["port"] == out["jax"]
+    assert jax_routeplan_available()
+    for route in ("python", "auto"):
+        for name in PACKAGES:
+            monkeypatch.setattr(_pkg(name).cutthrough, "ROUTE_IMPL", route)
+        out = {}
+        for name in PACKAGES:
+            out[name] = await _bound_names_run(_pkg(name))
+        assert out["jax"]["topics"] == [1, 2], route
+        # the bound names' classes: the two consensus.* broadcasts crossed
+        # the link as consensus
+        consensus, bulk = 1, 3
+        assert sorted(row[consensus]
+                      for row in out["jax"]["link_sent"]) == [0, 2], route
+        fates = out["jax"]["fates"]
+        if route == "python":
+            # the scalar twin records the unheard bulk.blob one as a bulk
+            # drop
+            assert fates["dropped/no_interest"][bulk] == 1
+        else:
+            # the plan classes the two deliveries at alice's broker by
+            # their topic's bound name (the scalar twin counts them live)
+            assert fates["delivered/egress"][consensus] == 2, fates
+        cut = {name: out[name].pop("cutthrough") for name in PACKAGES}
+        if route == "auto":
+            assert cut["jax"] > 0 and cut["port"] > 0, cut
+        else:
+            assert cut == {"jax": 0, "port": 0}, cut
+        assert out["port"] == out["jax"], route
+
+
+async def _bound_names_run(p) -> dict:
+    ledger = importlib.import_module(f"{p.root}.proto.ledger")
+    metrics = importlib.import_module(f"{p.root}.proto.metrics")
+    async with asyncio.timeout(SCENARIO_TIMEOUT_S):
+        cluster = await p.cluster(
+            num_brokers=2, topics=p.topic.TopicSpace.range(8)).start()
+        try:
+            alice, bob = await _two_homes(p, cluster, (93, 94), [])
+            home = cluster.brokers[1]     # alice's broker
+            await asyncio.sleep(0.2)
+            ledger.reset_for_tests()
+            cut0 = metrics.ROUTE_CUTTHROUGH_FRAMES.value
+            await alice.subscribe_pattern("consensus.*")
+            await p.wait_until(lambda: home.connections.user_topics
+                               .get_values_of_key(alice.public_key))
+            topics = sorted(home.connections.user_topics
+                            .get_values_of_key(alice.public_key))
+            await p.sync.partial_topic_sync(home)
+            await p.wait_until(lambda: len(cluster.brokers[0].connections
+                                           .get_interested_by_topic(
+                                               [2], False)[1]) == 1)
+            for t in (1, 3, 2):
+                await bob.send_broadcast_message([t], b"topic %d" % t)
+            await bob.send_direct_message(alice.public_key, b"marker")
+            got = [await _recv(p, alice) for _ in range(3)]
+            assert got == [["broadcast", b"topic 1"],
+                           ["broadcast", b"topic 2"],
+                           ["direct", b"marker"]]
+            await asyncio.sleep(0.2)
+            led = ledger.LEDGER
+            out = dict(
+                topics=topics, got=got,
+                fates={"/".join(k): v for k, v in led.fates.items()},
+                ingress=led.ingress,
+                link_sent=sorted(led.link_sent.values()),
+                link_recv=sorted(led.link_recv.values()),
+                cutthrough=metrics.ROUTE_CUTTHROUGH_FRAMES.value - cut0)
+            alice.close()
+            bob.close()
+            return out
+        finally:
+            await cluster.stop()
 
 
 async def test_retained_topics_need_the_rings_not_yet_ported(monkeypatch):

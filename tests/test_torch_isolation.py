@@ -220,7 +220,10 @@ print(line)
 @pytest.mark.parametrize("module", [
     "pushcdn_tpu_torch.marshal", "pushcdn_tpu_torch.client",
     "pushcdn_tpu_torch.broker.broker", "pushcdn_tpu_torch.bin.marshal",
-    "pushcdn_tpu_torch.bin.client", "pushcdn_tpu_torch.bin.broker"])
+    "pushcdn_tpu_torch.bin.client", "pushcdn_tpu_torch.bin.broker",
+    "pushcdn_tpu_torch.broker.tasks.cutthrough",
+    "pushcdn_tpu_torch.native.routeplan",
+    "pushcdn_tpu_torch.testing.routebench"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -252,17 +255,23 @@ async def serve():
     await run.send_message_as(run.user(0), Broadcast([0], b"hi"))
     for u in run.connected_users:
         await run.assert_received(u, Broadcast([0], b"hi"), timeout=5)
+    # routed by the cut-through plane (the lone frame by its residual twin)
+    assert broker._route_state is not None
     await run.shutdown()
 
 asyncio.run(serve())
+from pushcdn_tpu_torch.proto import metrics
+assert metrics.ROUTE_RESIDUAL_FRAMES.value + \
+    metrics.ROUTE_CUTTHROUGH_FRAMES.value == 1
+assert metrics.ROUTE_SCALAR_FRAMES.value == 0
 assert "torch" not in sys.modules
 print("ok")
 """
 
 
 def test_host_broker_serves_without_torch():
-    """A broker without a plane starts, serves users and stops without
-    ever importing torch."""
+    """A broker without a plane starts, serves users through the
+    cut-through routing plane and stops without ever importing torch."""
     r = subprocess.run([sys.executable, "-c", _HOST_BROKER], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

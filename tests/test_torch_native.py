@@ -447,25 +447,29 @@ def test_both_decoders_in_one_process_keep_their_classes():
 
 
 def test_libraries_build_from_the_ports_sources():
-    paths = tnative.library_paths()
-    assert set(paths) == {"framing", "pydecode"}
+    from pushcdn_tpu.native import routeplan as jroute
+    paths = tnative.build()     # every library, loaded in this process
+    assert paths == tnative.library_paths()
+    assert set(paths) == {"framing", "pydecode", "route_plan"}
     for name, path in paths.items():
         assert path.parent == ROOT / ".build" / "torch_native"
         assert path.is_file(), name
         assert (ROOT / "pushcdn_tpu_torch" / "native" / f"{name}.cpp").is_file()
     assert paths["framing"] != Path(jnative._LIB_PATH)
     assert paths["pydecode"] != Path(jnative._pydecode_lib_path())
+    assert paths["route_plan"] != Path(jroute._LIB_PATH)
     assert paths["pydecode"].name.endswith(
         f"-{tnative._pydecode_abi()}.so")
     maps = Path("/proc/self/maps").read_text()
     for path in paths.values():
         assert str(path) in maps   # the port's own files are the loaded ones
-    src = (ROOT / "pushcdn_tpu_torch" / "native" / "__init__.py").read_text()
-    assert '"native"' not in src and "_REPO" not in src
+    for module in ("__init__.py", "routeplan.py"):
+        src = (ROOT / "pushcdn_tpu_torch" / "native" / module).read_text()
+        assert '"native"' not in src and "_REPO" not in src
 
 
 def test_library_name_follows_source_and_flags(monkeypatch, tmp_path):
-    for name in ("framing", "pydecode"):
+    for name in ("framing", "pydecode", "route_plan"):
         (tmp_path / f"{name}.cpp").write_bytes(
             (tnative.SRC_DIR / f"{name}.cpp").read_bytes())
     monkeypatch.setattr(tnative, "SRC_DIR", tmp_path)
