@@ -170,7 +170,30 @@ Phases, each printing one JSON line:
    ``RoutePlanner.plan`` call and one whole chunk over a 2048-frame burst
    of phase 8's mix against phase 8's 4096-user table, its pairs equal to
    the oracle's deliveries (host-clock medians). One ``route`` line per
-   row.
+   row;
+14. the sharded host data plane on the card's host (appended after phase
+   13): (a) ``testing.shardharness.run_sharded`` in this process, phase
+   8's 4096 users dealt round-robin over the worker shards, 3 topics of
+   256 each, users 0-63 publishing one 2048-frame burst of phase 8's mix
+   paced as phase 8 paces it, the pipes widened as there, rings at the
+   binary's default size: 2 worker shards at uniform and at zipf, on
+   phase 8's seeds (4 worker shards: ``phase_shards``'s ``runs``, left
+   out for the time limit); each run must deliver exactly the
+   oracle's frames in publisher order per lane, plan every publisher
+   frame under ``path=cutthrough``, hand records to the rings (shed
+   none) and leave every worker's byte pool whole after shutdown; its
+   delivered msgs/s beside phase 8's ``host`` run on the same burst (all
+   workers share one event loop here, so the ratio is reported, not
+   claimed). (b) Phase 9's plane-less deployment with ``python -m
+   pushcdn_tpu_torch.bin.broker --shards 2``: 1024 TCP+TLS clients spread
+   over the workers by ``SO_REUSEPORT``, the 2 uniform bursts against the
+   oracle as a multiset; the supervisor's ``/debug/topology`` must show
+   users on both workers, its merged ``/metrics`` the ``shard`` labels
+   and ring handoffs, every worker's ``cdn_build_info`` torch as absent,
+   and every process must exit 0 on SIGTERM; msgs/s and p50 / p99 beside
+   phase 9's plane-less broker. (c) ``--shards 2 --device-plane`` must
+   exit non-zero with the JAX binary's message. One ``shards`` line per
+   run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -1161,6 +1184,91 @@ def route_delta(before: dict) -> dict:
     return {p: int(after[p] - before[p]) for p in ROUTE_PATHS}
 
 
+async def publish_and_drain(label: str, remotes: list, bursts: list,
+                            base: int) -> tuple:
+    """Publish ``bursts`` from users 0..P-1 (``remotes`` are every user's
+    remote ends, over the Memory transport), ``PUBLISH_GROUP`` publishers'
+    frames a turn of the event loop, each burst drained before the next,
+    while every user's remote end drains and records what arrives.
+    Returns per user its delivery codes (without the uid) and bytes, the
+    publish-to-receive latencies in ns and the bursts' busy seconds."""
+    got = [[] for _ in remotes]
+    got_bytes = [0] * len(remotes)
+    latency_ns = []
+    seen = [0, 0]   # frames received, perf_counter ns of the last
+
+    async def drain(uid, remote):
+        box = got[uid]
+        while True:
+            raws = await remote.recv_raw_many()
+            now = time.perf_counter_ns()
+            for raw in raws:
+                d = raw.data
+                pub, seq, sent = TAIL.unpack_from(d, len(d) - TAIL.size)
+                box.append(((pub * 2 + (len(d) > base)) << 32) | seq)
+                got_bytes[uid] += len(d)
+                latency_ns.append(now - sent)
+                raw.release()
+            seen[0] += len(raws)
+            seen[1] = now
+
+    drains = [asyncio.create_task(drain(uid, remote))
+              for uid, remote in enumerate(remotes)]
+    busy_s = 0.0
+    want_total = 0
+    try:
+        for frames, _, codes, _, _ in bursts:
+            want_total += len(codes)
+            t0 = time.perf_counter_ns()
+            for pub, pub_frames in enumerate(frames):
+                stamp = struct.pack("<q", time.perf_counter_ns())
+                await remotes[pub].send_raw_many(
+                    [f[:-8] + stamp for f in pub_frames])
+                if pub % PUBLISH_GROUP == PUBLISH_GROUP - 1:
+                    await asyncio.sleep(0)
+            async with asyncio.timeout(300):
+                while seen[0] < want_total:
+                    await asyncio.sleep(0.002)
+            busy_s += (seen[1] - t0) / 1e9
+        # a duplicate or a stray frame would land in this window
+        await asyncio.sleep(0.2)
+    except TimeoutError:
+        raise SmokeFailure(f"{label}: {seen[0]} of {want_total} "
+                           "frames arrived") from None
+    finally:
+        for t in drains:
+            t.cancel()
+        ends = await asyncio.gather(*drains, return_exceptions=True)
+    check(all(isinstance(e, asyncio.CancelledError) for e in ends),
+          f"{label}: a receiver failed: "
+          f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
+    return got, got_bytes, latency_ns, busy_s
+
+
+def check_in_process_deliveries(label: str, got: list, got_bytes: list,
+                                bursts: list):
+    """Every user's frames against the oracle, its bytes, and publisher
+    order per lane. Returns the oracle's sorted delivery codes."""
+    want = np.sort(np.concatenate([b.codes for b in bursts]))
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries differ from the oracle's "
+          f"{len(want)}")
+    check(np.array_equal(np.asarray(got_bytes),
+                         sum(b.nbytes for b in bursts)),
+          f"{label}: received bytes differ from the oracle's")
+    for uid, c in enumerate(got):
+        c = np.asarray(c, np.int64)
+        order = np.argsort(c >> 32, kind="stable")
+        hi, seq = (c >> 32)[order], (c & 0xFFFFFFFF)[order]
+        check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
+              f"{label}: user {uid} got a publisher's frames out of order")
+    return want
+
+
 async def broker_run(impl: str, popularity: str, seed: int, device,
                      shape: dict) -> dict:
     """One run of the broker phase: a broker with a device plane of
@@ -1219,62 +1327,16 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
         try:
             await run.inject_users(sc.topics)
             plane = broker.device_plane
-            got = [[] for _ in range(U)]
-            got_bytes = [0] * U
-            latency_ns = []
-            seen = [0, 0]   # frames received, perf_counter ns of the last
-
-            async def drain(uid, remote):
-                box = got[uid]
-                while True:
-                    raws = await remote.recv_raw_many()
-                    now = time.perf_counter_ns()
-                    for raw in raws:
-                        d = raw.data
-                        pub, seq, sent = TAIL.unpack_from(
-                            d, len(d) - TAIL.size)
-                        box.append(((pub * 2 + (len(d) > base)) << 32) | seq)
-                        got_bytes[uid] += len(d)
-                        latency_ns.append(now - sent)
-                        raw.release()
-                    seen[0] += len(raws)
-                    seen[1] = now
-
-            drains = [asyncio.create_task(drain(uid, u.remote))
-                      for uid, u in enumerate(run.connected_users)]
             dk.LAUNCHES = 0
             rd.LAUNCHES = 0
             paths0 = route_frames()
-            busy_s = 0.0
-            want_total = 0
             try:
-                for frames, _, codes, _, _ in bursts:
-                    want_total += len(codes)
-                    t0 = time.perf_counter_ns()
-                    for pub, pub_frames in enumerate(frames):
-                        stamp = struct.pack("<q", time.perf_counter_ns())
-                        await run.user(pub).remote.send_raw_many(
-                            [f[:-8] + stamp for f in pub_frames])
-                        if pub % PUBLISH_GROUP == PUBLISH_GROUP - 1:
-                            await asyncio.sleep(0)
-                    async with asyncio.timeout(300):
-                        while seen[0] < want_total:
-                            await asyncio.sleep(0.002)
-                    busy_s += (seen[1] - t0) / 1e9
-                # a duplicate or a stray frame would land in this window
-                await asyncio.sleep(0.2)
-            except TimeoutError:
-                raise SmokeFailure(f"{label}: {seen[0]} of {want_total} "
-                                   "frames arrived") from None
+                got, got_bytes, latency_ns, busy_s = await publish_and_drain(
+                    label, [u.remote for u in run.connected_users], bursts,
+                    base)
             finally:
                 launches = (dk.LAUNCHES, rd.LAUNCHES)
                 paths = route_delta(paths0)
-                for t in drains:
-                    t.cancel()
-                ends = await asyncio.gather(*drains, return_exceptions=True)
-            check(all(isinstance(e, asyncio.CancelledError) for e in ends),
-                  f"{label}: a receiver failed: "
-                  f"{[e for e in ends if not isinstance(e, asyncio.CancelledError)][:1]}")
             stats = plane_stats(plane)
         finally:
             await run.shutdown()
@@ -1284,24 +1346,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
         if os.path.exists(db):
             os.remove(db)
 
-    # every user's frames against the oracle, and publisher order per lane
-    want = np.sort(np.concatenate([b.codes for b in bursts]))
-    have = np.sort(np.concatenate(
-        [np.empty(0, np.int64)]
-        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
-           for uid, c in enumerate(got)]))
-    check(have.shape == want.shape and (have == want).all(),
-          f"{label}: the {len(have)} deliveries differ from the oracle's "
-          f"{len(want)}")
-    check(np.array_equal(np.asarray(got_bytes),
-                         sum(b.nbytes for b in bursts)),
-          f"{label}: received bytes differ from the oracle's")
-    for uid, c in enumerate(got):
-        c = np.asarray(c, np.int64)
-        order = np.argsort(c >> 32, kind="stable")
-        hi, seq = (c >> 32)[order], (c & 0xFFFFFFFF)[order]
-        check(((np.diff(seq) > 0) | (np.diff(hi) != 0)).all(),
-              f"{label}: user {uid} got a publisher's frames out of order")
+    want = check_in_process_deliveries(label, got, got_bytes, bursts)
     if plane is not None:
         check(not plane.disabled, f"{label}: the device plane disabled itself")
         check(plane.steps > 0, f"{label}: the plane never stepped")
@@ -1443,15 +1488,21 @@ def log_tail(path: str, n: int = 4000) -> str:
         return ""
 
 
-def log_fields(path: str, what: str):
-    """The JSON of the last ``<what> {...}`` line the broker binary wrote,
-    or None."""
-    found = None
+def log_all_fields(path: str, what: str) -> list:
+    """The JSON of every ``<what> {...}`` line the broker binary wrote."""
+    found = []
     for line in log_tail(path, 1 << 20).splitlines():
         at = line.find(what + " {")
         if at >= 0:
-            found = json.loads(line[at + len(what) + 1:])
+            found.append(json.loads(line[at + len(what) + 1:]))
     return found
+
+
+def log_fields(path: str, what: str):
+    """The JSON of the last ``<what> {...}`` line the broker binary wrote,
+    or None."""
+    found = log_all_fields(path, what)
+    return found[-1] if found else None
 
 
 class Children:
@@ -1481,17 +1532,21 @@ class Children:
                   f"\n{log_tail(self.logs[name])}")
 
     async def wait_for_line(self, name: str, what: str, label: str,
-                            timeout: float):
+                            timeout: float, count: int = 1):
+        """The last ``what`` line of the child ``name``, once it has
+        written ``count`` of them (a sharded broker's workers log to one
+        file, each its own line)."""
         try:
             async with asyncio.timeout(timeout):
-                while (fields := log_fields(self.logs[name], what)) is None:
+                while len(found := log_all_fields(self.logs[name],
+                                                  what)) < count:
                     self.check_alive(label)
                     await asyncio.sleep(0.1)
         except TimeoutError:
-            raise SmokeFailure(f"{label}: no {what!r} line from the {name} "
-                               f"in {timeout} s:\n"
+            raise SmokeFailure(f"{label}: {len(found)} of {count} {what!r} "
+                               f"lines from the {name} in {timeout} s:\n"
                                f"{log_tail(self.logs[name])}") from None
-        return fields
+        return found[-1]
 
     def terminate(self, label: str, timeout: float = 60.0) -> None:
         """SIGTERM every child; each must exit 0 within ``timeout``."""
@@ -1536,6 +1591,44 @@ def metric(text: str, name: str) -> float:
     return 0.0
 
 
+def metric_sum(text: str, name: str, **labels) -> float:
+    """The sum of ``name``'s labelled samples that carry every label of
+    ``labels`` (a sharded broker's supervisor serves one sample a worker
+    shard, each with its ``shard`` label; a family's unlabelled total is
+    not one of them)."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") and all(
+                w in line[:line.rfind("}")] for w in want):
+            total += float(line.split()[-1])
+    return total
+
+
+def metrics_port(workers: int, taken=()) -> int:
+    """A free loopback port, none of ``taken``, whose next ``workers``
+    ports are free too: a sharded broker's supervisor serves its merged
+    endpoints there and each worker shard its own on the next ports."""
+    import socket
+    for _ in range(100):
+        base = free_ports(1)[0]
+        if any(base + k in taken for k in range(workers + 1)):
+            continue
+        socks = []
+        try:
+            for k in range(1, workers + 1):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise SmokeFailure(f"no {workers + 1} free loopback ports in a row")
+
+
 def percentiles_ms(latency_ns) -> dict:
     lat = np.asarray(latency_ns, np.float64) / 1e6
     return dict(publish_to_receive_ms_p50=float(np.percentile(lat, 50)),
@@ -1543,21 +1636,27 @@ def percentiles_ms(latency_ns) -> dict:
 
 
 async def cluster_run(impl: str, seed: int, shape: dict,
-                      device=None) -> dict:
+                      device=None, shards: int = 1) -> dict:
     """One run of phase 9: a marshal and a broker (with a device plane of
     ``impl``, or none for ``impl="host"``) as child processes on a fresh
     discovery file, ``users`` clients authenticating through the marshal
     over TCP+TLS, the uniform bursts, and for a plane run every client's
     subscriptions redrawn zipf through ``Client.subscribe`` and
     ``unsubscribe`` and the zipf bursts. The plane runs on the binary's
-    default device (CUDA) unless ``device`` names another. Every check of
-    the run, then its numbers."""
+    default device (CUDA) unless ``device`` names another. ``shards`` > 1
+    starts the plane-less broker as ``--shards`` worker shards (phase 14):
+    its supervisor's merged ``/debug/topology`` must show users on every
+    worker, its merged ``/metrics`` ring handoffs and every worker's
+    ``cdn_build_info`` torch as absent. Every check of the run, then its
+    numbers."""
     from pushcdn_tpu_torch.client import Client, ClientConfig
     from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
     from pushcdn_tpu_torch.proto.message import Broadcast, Direct
     from pushcdn_tpu_torch.proto.transport import TcpTls
 
-    label = f"cluster {impl}"
+    label = f"cluster {impl}" + (f" --shards {shards}" if shards > 1 else "")
+    check(shards == 1 or impl == "host",
+          f"{label}: worker shards run without a plane")
     U, P = shape["users"], shape["publishers"]
     pairs = [DEFAULT_SCHEME.generate_keypair(seed=seed * 1_000_000 + u)
              for u in range(U)]
@@ -1569,12 +1668,13 @@ async def cluster_run(impl: str, seed: int, shape: dict,
     if impl != "host":
         sc.subscribe("zipf")
         plan += [("zipf", sc.burst()) for _ in range(shape["bursts"]["zipf"])]
-    tag = f"cluster-{impl}-{os.getpid()}"
+    tag = f"cluster-{impl}-{shards}-{os.getpid()}"
     db = os.path.join(HERE, ".build", f"{tag}.sqlite")
     for suffix in ("", "-wal", "-shm"):
         if os.path.exists(db + suffix):
             os.remove(db + suffix)
-    pub, priv, broker_metrics, marshal, marshal_metrics = free_ports(5)
+    pub, priv, marshal, marshal_metrics = ports = free_ports(4)
+    broker_metrics = metrics_port(shards if shards > 1 else 0, ports)
     kids = Children(tag)
     clients = []
     drains = []
@@ -1589,15 +1689,17 @@ async def cluster_run(impl: str, seed: int, shape: dict,
                    "--user-transport", "tcp+tls", "--broker-transport", "tcp",
                    *(["--device-plane"] if impl != "host" else []),
                    *(["--device", str(device)] if device else []),
+                   *(["--shards", str(shards)] if shards > 1 else []),
                    env={"PUSHCDN_DELIVERY_IMPL": impl} if impl != "host"
                    else None)
         kids.spawn("marshal", "--discovery-endpoint", db,
                    "--bind-endpoint", f"127.0.0.1:{marshal}",
                    "--metrics-bind-endpoint", f"127.0.0.1:{marshal_metrics}",
                    "--user-transport", "tcp+tls")
-        # the broker logs this line once its plane has warmed up
+        # the broker logs this line once its plane has warmed up (each
+        # worker shard its own)
         serving = await kids.wait_for_line("broker", "broker serving", label,
-                                           timeout=180)
+                                           timeout=180, count=shards)
         startup_s = time.perf_counter() - t_run
         try:
             async with asyncio.timeout(60):   # the broker registered
@@ -1719,15 +1821,20 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         check(scraped is not None and scraped[0] == 200,
               f"{label}: the broker's /metrics did not answer")
         routed_metric = metric(scraped[1], "cdn_device_messages_routed")
-        route = {p: metric(scraped[1], f'cdn_route_batch_frames{{path="{p}"}}')
+        route = {p: metric_sum(scraped[1], "cdn_route_batch_frames", path=p)
                  for p in ROUTE_PATHS}
+        workers = None
+        if shards > 1:
+            workers = await sharded_broker_checks(label, broker_metrics,
+                                                  scraped[1], shards)
         for c in clients:
             c.close()
         kids.terminate(label)
-        exit_fields = log_fields(kids.logs["broker"], "device plane exit")
-        check(exit_fields is not None,
-              f"{label}: the broker logged no exit line:\n"
-              f"{log_tail(kids.logs['broker'])}")
+        exits = log_all_fields(kids.logs["broker"], "device plane exit")
+        check(len(exits) == shards,
+              f"{label}: the broker logged {len(exits)} of {shards} exit "
+              f"lines:\n{log_tail(kids.logs['broker'])}")
+        exit_fields = exits[-1]
     finally:
         for t in drains:
             t.cancel()
@@ -1757,7 +1864,7 @@ async def cluster_run(impl: str, seed: int, shape: dict,
     kernel = {"dense": "delivery_matrix_cuda",
               "ragged": "ragged_delivery_cuda"}.get(impl)
     if kernel is None:
-        check(not any(exit_fields["launches"].values()),
+        check(not any(v for e in exits for v in e["launches"].values()),
               f"{label}: the host-path broker launched a kernel")
         check(routed_metric == 0 and "messages_routed" not in exit_fields,
               f"{label}: a host-path broker routed on a plane")
@@ -1778,8 +1885,8 @@ async def cluster_run(impl: str, seed: int, shape: dict,
               f"{label}: the device plane disabled itself")
         check(exit_fields["delivery_impl"] == impl,
               f"{label}: the plane switched to {exit_fields['delivery_impl']}")
-    check(exit_fields["native"], f"{label}: the broker's native host "
-          "routines did not load")
+    check(all(e["native"] for e in exits), f"{label}: the broker's native "
+          "host routines did not load")
     if impl == "dense":
         check(exit_fields["native_egress_steps"] == exit_fields["busy_steps"]
               > 0, f"{label}: {exit_fields['native_egress_steps']} of "
@@ -1790,7 +1897,9 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         impl=impl,
         popularity="uniform, then zipf" if impl != "host" else "uniform",
         path="device plane in the broker process" if kernel
-        else "the port's host path (cut-through plane), same machine",
+        else "the port's host path (cut-through plane), same machine"
+        + (f", {shards} worker shard processes" if shards > 1 else ""),
+        shards=shards,
         clients=U, transport="tcp+tls", topics=shape["topics"],
         publishers=P, frames_per_burst=shape["frames"],
         startup_s=startup_s, auth_s=auth_s, resubscribe_s=resubscribe_s,
@@ -1813,6 +1922,7 @@ async def cluster_run(impl: str, seed: int, shape: dict,
         delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
         ragged_delivery_cuda=traffic["ragged_delivery_cuda"],
         warmup_launches=serving["launches"],
+        **({"workers": workers} if workers is not None else {}),
         busy_s=busy, run_s=time.perf_counter() - t_run)
 
 
@@ -3336,6 +3446,210 @@ def phase_route(shape: dict = BROKER, bench: dict = ROUTE) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the sharded host data plane (worker shards) on the card's host
+# ---------------------------------------------------------------------------
+
+HANDOFF_PATHS = ("ring", "fallback", "shed")
+
+
+def handoff_counts() -> dict:
+    """This process's ``cdn_shard_handoff_records`` and ``_frames`` by
+    path so far (ring: the shared-memory ring; fallback: the counted
+    relay through the control plane a full ring degrades to; shed: past
+    the relay's budget)."""
+    from pushcdn_tpu_torch.proto import metrics
+    return {f"{what}_{p}": fam.labels(path=p).value
+            for what, fam in (("records", metrics.SHARD_HANDOFF_RECORDS),
+                              ("frames", metrics.SHARD_HANDOFF_FRAMES))
+            for p in HANDOFF_PATHS}
+
+
+async def sharded_broker_checks(label: str, port: int, text: str,
+                                shards: int) -> dict:
+    """The checks of a ``--shards`` broker's supervisor endpoints: users
+    on every worker (``/debug/topology``, each worker's own beside the
+    merged one), the workers' ``shard`` labels, ring handoffs in the merged
+    ``/metrics`` and torch absent from every worker. Returns the workers'
+    numbers."""
+    got = await asyncio.to_thread(http_get, port, "/debug/topology")
+    check(got is not None and got[0] == 200,
+          f"{label}: the supervisor's /debug/topology did not answer")
+    merged = json.loads(got[1])
+    per_worker = []
+    for s in range(shards):
+        own = await asyncio.to_thread(http_get, port + 1 + s,
+                                      "/debug/topology")
+        check(own is not None and own[0] == 200,
+              f"{label}: worker shard {s}'s /debug/topology did not answer")
+        per_worker.append(json.loads(own[1])["num_users"])
+    check(sorted({u["shard"] for u in merged["users"]}) == list(range(shards))
+          and all(per_worker),
+          f"{label}: users per worker shard {per_worker}: SO_REUSEPORT did "
+          "not spread them")
+    check(merged["num_users"] == sum(per_worker),
+          f"{label}: the merged topology counts {merged['num_users']} users, "
+          f"the workers {per_worker}")
+    check(metric(text, "cdn_shard_workers") == shards
+          and all(f'shard="{s}"' in text for s in range(shards)),
+          f"{label}: the merged /metrics lacks a worker shard's samples")
+    handoffs = {f"{what}_{p}": metric_sum(text, f"cdn_shard_handoff_{what}",
+                                          path=p)
+                for what in ("records", "frames") for p in HANDOFF_PATHS}
+    check(handoffs["records_ring"] > 0,
+          f"{label}: no record crossed a handoff ring: {handoffs}")
+    info = [line for line in text.splitlines()
+            if line.startswith("cdn_build_info{")]
+    check(len(info) == shards and all('torch="absent"' in i for i in info),
+          f"{label}: a worker shard imported torch: {info}")
+    return dict(users_per_worker=per_worker, handoffs=handoffs,
+                build_info=info)
+
+
+async def sharded_run(popularity: str, seed: int, shape: dict,
+                      num_shards: int) -> dict:
+    """One in-process run of phase 14: ``testing.shardharness.run_sharded``
+    with ``num_shards`` worker shards on this event loop (real
+    shared-memory rings at the binary's default size, the in-process
+    control bus), phase 8's users dealt round-robin over the workers
+    (user ``uid`` on worker ``uid % num_shards``), one burst of phase 8's
+    mix from users 0..63 paced as phase 8 paces it. Checks: every user's
+    frames against the oracle, in publisher order per lane; every
+    publisher frame planned under ``path=cutthrough``; ring handoffs; no
+    shed; every worker's byte pool whole after shutdown."""
+    import gc
+
+    from pushcdn_tpu_torch.broker import sharding
+    from pushcdn_tpu_torch.proto.topic import TopicSpace
+    from pushcdn_tpu_torch.proto.transport.memory import Memory
+    from pushcdn_tpu_torch.testing.shardharness import run_sharded
+
+    label = f"shards {num_shards}/{popularity}"
+    U, base = shape["users"], shape["frame_bytes"]
+    sc = BrokerScenario(popularity, seed, shape)
+    burst = sc.burst()
+    prev_window = Memory.set_duplex_window(256 * 1024)
+    t_run = time.perf_counter()
+    try:
+        run = await run_sharded(
+            [(uid % num_shards, topics) for uid, topics in enumerate(sc.topics)],
+            num_shards=num_shards, ring_bytes=sharding.DEFAULT_RING_BYTES,
+            topics=TopicSpace.range(shape["topics"]))
+        pools = [b.limiter.pool for b in run.brokers]
+        try:
+            setup_s = time.perf_counter() - t_run
+            paths0 = route_frames()
+            handoff0 = handoff_counts()
+            try:
+                got, got_bytes, latency_ns, busy_s = await publish_and_drain(
+                    label, [u.remote for u, _s in run.connected_users],
+                    [burst], base)
+            finally:
+                paths = route_delta(paths0)
+                after = handoff_counts()
+                handoffs = {k: int(after[k] - handoff0[k]) for k in after}
+            ring_stats = [rt.stats()["rings"] for rt in run.runtimes]
+        finally:
+            await run.shutdown()
+        for _ in range(50):
+            gc.collect()
+            if all(p is None or p.available == p.capacity for p in pools):
+                break
+            await asyncio.sleep(0.02)
+        in_use = [0 if p is None else p.capacity - p.available for p in pools]
+    finally:
+        Memory.set_duplex_window(prev_window)
+
+    want = check_in_process_deliveries(label, got, got_bytes, [burst])
+    sent = sum(len(f) for f in burst.frames)
+    want_paths = {"cutthrough": sent, "residual": 0, "scalar": 0}
+    check(paths == want_paths, f"{label}: the publishers' {sent} frames "
+          f"were planned by path {paths}, not {want_paths}")
+    check(handoffs["records_ring"] > 0 and handoffs["frames_ring"] > 0,
+          f"{label}: no record crossed a handoff ring: {handoffs}")
+    check(handoffs["records_shed"] == 0,
+          f"{label}: the relay shed {handoffs['records_shed']} records")
+    check(not any(in_use), f"{label}: byte pools not whole after shutdown: "
+          f"{in_use} bytes in use")
+    return dict(
+        shards=num_shards, popularity=popularity,
+        path="the port's host path (cut-through plane) in worker shards on "
+        "one event loop, shared-memory rings",
+        users=U, topics=shape["topics"], publishers=shape["publishers"],
+        frames_per_burst=shape["frames"], deliveries=len(want),
+        matches_oracle=True, fifo_per_publisher_and_lane=True,
+        ring_bytes=sharding.DEFAULT_RING_BYTES,
+        delivered_msgs_per_s=len(want) / busy_s,
+        **percentiles_ms(latency_ns),
+        cdn_route_batch_frames=paths, cdn_shard_handoff=handoffs,
+        rings=ring_stats, pool_bytes_in_use_after_shutdown=in_use,
+        setup_s=setup_s, busy_s=busy_s, run_s=time.perf_counter() - t_run)
+
+
+def phase_shards(broker_rows: dict, cluster_rows: dict,
+                 shape: dict = BROKER, cluster: dict = CLUSTER,
+                 runs=((2, "uniform"), (2, "zipf"))) -> dict:
+    """Phase 14: the sharded host data plane. (a) ``runs`` (worker shards,
+    popularity) in process at phase 8's width on phase 8's seeds, each
+    beside phase 8's ``host`` run on the same burst; (b) a marshal and
+    ``broker --shards 2`` as processes with phase 9's clients and uniform
+    bursts, beside phase 9's plane-less broker; (c) ``--shards 2
+    --device-plane`` refused. One ``shards`` line per run. A run of 4
+    worker shards (``runs`` with ``(4, "uniform")``) is left out for the
+    script's time limit."""
+    rows = {}
+    for num_shards, popularity in runs:
+        seed = 40 + (popularity == "zipf")   # phase 8's seeds
+        rows[(num_shards, popularity)] = row = asyncio.run(
+            sharded_run(popularity, seed, shape, num_shards))
+        host = broker_rows.get(("host", popularity))
+        if host is not None:
+            row["host_msgs_per_s"] = host["delivered_msgs_per_s"]
+            row["over_host"] = (row["delivered_msgs_per_s"]
+                                / host["delivered_msgs_per_s"])
+        emit("shards", run="in process", **row)
+    row = asyncio.run(cluster_run("host", 90, cluster, shards=2))
+    host = cluster_rows["host"]
+    row["host_msgs_per_s"] = host["delivered_msgs_per_s"]
+    row["host_p50_ms"] = host["publish_to_receive_ms_p50"]
+    row["host_p99_ms"] = host["publish_to_receive_ms_p99"]
+    row["over_host"] = row["delivered_msgs_per_s"] / row["host_msgs_per_s"]
+    rows["processes"] = row
+    emit("shards", run="processes", **row)
+    rows["refusal"] = row = shards_refusal()
+    emit("shards", run="refusal", **row)
+    return rows
+
+
+def shards_refusal() -> dict:
+    """``broker --shards 2 --device-plane`` must exit non-zero with the
+    JAX binary's message, before it starts a worker or touches the card."""
+    kids = Children(f"shards-refusal-{os.getpid()}")
+    pub, priv = free_ports(2)
+    t0 = time.perf_counter()
+    try:
+        kids.spawn("broker", "--discovery-endpoint",
+                   os.path.join(HERE, ".build", "shards-refusal.sqlite"),
+                   "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                   "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                   "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                   "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                   "--shards", "2", "--device-plane")
+        try:
+            rc = kids.procs["broker"].wait(60)
+        except subprocess.TimeoutExpired:
+            rc = None
+        out = log_tail(kids.logs["broker"])
+    finally:
+        kids.kill()
+    needle = "--shards is a host-data-plane feature"
+    check(rc not in (0, None) and needle in out,
+          f"shards refusal: exit {rc}:\n{out}")
+    check("shard worker" not in out and "broker serving" not in out,
+          f"shards refusal: a worker or a plane started:\n{out}")
+    return dict(exit_code=rc, message=needle, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3544,14 +3858,14 @@ def main() -> int:
 
     lap(7)
     # 8. the broker; its device runs' launches join the kernel line's
-    _, broker_launches = phase_broker(device)
+    broker_rows, broker_launches = phase_broker(device)
     launches["dense"] += broker_launches["dense"]
     launches["ragged"] += broker_launches["ragged"]
 
     lap(8)
     # 9. the cluster as processes; the broker processes' launches over
     # their runs' traffic join the kernel line's
-    _, cluster_launches = phase_cluster()
+    cluster_rows, cluster_launches = phase_cluster()
     launches["dense"] += cluster_launches["dense"]
     launches["ragged"] += cluster_launches["ragged"]
 
@@ -3596,6 +3910,10 @@ def main() -> int:
     # 13. the host routing plane on the card's host
     phase_route()
     lap(13)
+    # 14. the sharded host data plane (worker shards) on the card's host,
+    # beside phase 8's and phase 9's plane-less brokers
+    phase_shards(broker_rows, cluster_rows)
+    lap(14)
     emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
          total=sum(laps.values()))
 

@@ -25,9 +25,22 @@ same global mesh of N shards and attaches to a local shard
 (``--mesh-shard``, default the first); the inter-broker plane is the
 mesh step, so no host broker links form. Each process contributes every
 visible CUDA card once, or with ``--device`` its N / processes shards
-folded onto that one device. Not copied yet (ROADMAP.md, Queue A):
-``--shards``, the io_uring and pump selectors, and the re-homing of users
-on a drain.
+folded onto that one device.
+
+``--shards N`` (or ``PUSHCDN_SHARDS``) runs one broker identity as N
+worker OS processes (worker shards, ``broker.sharding``): this process
+becomes their supervisor, which spawns ``python -m
+pushcdn_tpu_torch.bin.broker`` once per worker with the hidden
+``--shard-index``/``--shard-ipc`` flags, relays interest deltas between
+them and serves ``/metrics``, ``/healthz``, ``/readyz`` and
+``/debug/topology`` merged over the workers (each worker's own endpoint
+sits on the next ports). Worker 0 owns the mesh links; users spread over
+the workers through ``SO_REUSEPORT``, or through the supervisor's
+fd-handoff acceptor where the platform lacks it (``tcp`` users only).
+It is a host data plane feature: with ``--device-plane`` or
+``--mesh-shards`` the binary refuses to start, and no process of a
+sharded broker imports torch. Not copied yet (ROADMAP.md, Queue A): the
+io_uring and pump selectors, and the re-homing of users on a drain.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import json
 import logging
 import os
 import statistics
+import sys
 
 from pushcdn_tpu_torch.bin.common import (
     drain_grace_s,
@@ -88,6 +102,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "user/topic syncs + LedgerSync balance sheets); "
                         "audit drills shrink it so conservation sheets "
                         "propagate quickly")
+    # ---- sharded data plane (worker shards) -----------------------------
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard the data plane across N worker OS "
+                        "processes (default: PUSHCDN_SHARDS or 1, one "
+                        "process). Shard 0 owns the mesh; users spread "
+                        "across workers via SO_REUSEPORT (or parent "
+                        "fd-handoff)")
+    p.add_argument("--shard-index", type=int, default=None,
+                   help=argparse.SUPPRESS)  # internal: worker role
+    p.add_argument("--shard-ipc", default=None,
+                   help=argparse.SUPPRESS)  # internal: worker IPC spec
     # ---- device data plane ----------------------------------------------
     p.add_argument("--device-plane", action="store_true",
                    help="route eligible messages through the device plane "
@@ -132,10 +157,15 @@ def delivery_impl_from_env() -> str:
 
 
 def kernel_launches() -> dict:
-    """This process's launches of each kernel so far."""
-    from pushcdn_tpu_torch.ops import delivery_kernel, ragged_delivery
-    return {"delivery_matrix_cuda": delivery_kernel.LAUNCHES,
-            "ragged_delivery_cuda": ragged_delivery.LAUNCHES}
+    """This process's launches of each kernel so far. A kernel whose
+    module never loaded launched nothing, and reading its count must not
+    load it: that would import torch into a broker without a plane."""
+    out = {}
+    for kernel, module in (("delivery_matrix_cuda", "delivery_kernel"),
+                           ("ragged_delivery_cuda", "ragged_delivery")):
+        mod = sys.modules.get(f"pushcdn_tpu_torch.ops.{module}")
+        out[kernel] = mod.LAUNCHES if mod is not None else 0
+    return out
 
 
 def log_plane(what: str, plane) -> None:
@@ -229,8 +259,121 @@ def plane_overrides(args: argparse.Namespace) -> dict:
     return out
 
 
+def _worker_argv_base() -> list:
+    """This process's argv minus the flags the supervisor rewrites per
+    worker (--shards; --metrics-bind-endpoint is reassigned per shard)."""
+    argv = []
+    skip = False
+    for a in sys.argv[1:]:
+        if skip:
+            skip = False
+            continue
+        if a in ("--shards", "--metrics-bind-endpoint"):
+            skip = True
+            continue
+        if a.startswith("--shards=") or \
+                a.startswith("--metrics-bind-endpoint="):
+            continue
+        argv.append(a)
+    return argv
+
+
+async def run_supervisor(args: argparse.Namespace, shards: int) -> None:
+    """Parent of a sharded broker: spawn N workers, relay control-plane
+    deltas, aggregate observability, propagate drains."""
+    from pushcdn_tpu_torch.broker import sharding
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    os.environ["PYTHONPATH"] = (
+        repo + os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else repo)
+    base = _worker_argv_base()
+
+    def worker_argv(shard: int, spec_json: str, metrics_endpoint):
+        argv = [sys.executable, "-m", "pushcdn_tpu_torch.bin.broker", *base,
+                "--shard-index", str(shard), "--shard-ipc", spec_json]
+        if metrics_endpoint:
+            argv += ["--metrics-bind-endpoint", metrics_endpoint]
+        return argv
+
+    acceptor = None
+    if not sharding.reuseport_available():
+        if args.user_transport != "tcp":
+            # the handoff acceptor deals RAW TCP fds; a TLS/QUIC user
+            # transport would silently answer handshakes in plaintext
+            # (or never accept at all) — refuse loudly instead
+            raise SystemExit(
+                "--shards without SO_REUSEPORT uses the parent fd-handoff "
+                "acceptor, which supports only --user-transport tcp "
+                f"(got {args.user_transport!r}); use a platform with "
+                "SO_REUSEPORT for TLS/QUIC user transports")
+        acceptor = args.public_bind_endpoint
+    sup = sharding.ShardSupervisor(
+        shards, args.metrics_bind_endpoint, worker_argv,
+        acceptor_endpoint=acceptor)
+    try:
+        await sup.start()
+    except BaseException:
+        # half-started (e.g. parent metrics bind EADDRINUSE after the
+        # workers spawned): kill whatever came up and unlink the rings —
+        # REUSEPORT workers would otherwise keep serving as orphans
+        sup.signal_workers()
+        await sup.reap(5.0)
+        await sup.stop()
+        raise
+    drain = asyncio.Event()
+    installed = install_drain_signals(drain, on_signal=sup.begin_drain)
+    exit_task = asyncio.create_task(sup.wait_any_worker_exit(),
+                                    name="shard-reaper")
+    drain_task = asyncio.create_task(drain.wait(), name="drain-wait")
+    try:
+        await asyncio.wait({exit_task, drain_task},
+                           return_when=asyncio.FIRST_COMPLETED)
+        if installed and drain.is_set():
+            # workers flipped not-ready on the forwarded SIGTERM and are
+            # serving out the grace window; reap them BEFORE the parent's
+            # aggregated endpoint goes away
+            await sup.reap(drain_grace_s() + 15.0)
+            await sup.stop()
+            return
+        rc = exit_task.result() if exit_task.done() else 1
+        sup.signal_workers()
+        await sup.reap(5.0)
+        await sup.stop()
+        raise SystemExit(rc if rc not in (0, None) else 1)
+    finally:
+        for t in (exit_task, drain_task):
+            t.cancel()
+
+
 async def amain(args: argparse.Namespace) -> None:
+    from pushcdn_tpu_torch.broker import sharding
+
+    shards = sharding.shards_from_env(args.shards)
+    if shards > 1 and (args.device_plane or args.mesh_shards is not None):
+        raise SystemExit("--shards is a host-data-plane feature; combine "
+                         "with --device-plane/--mesh-shards once the "
+                         "device plane learns shard-local staging")
+    if args.shard_index is None and shards > 1:
+        await run_supervisor(args, shards)
+        return
     check_mesh_flags(args)
+    spec = None
+    if args.shard_index is not None:
+        if not args.shard_ipc:
+            raise SystemExit("--shard-index is internal (spawned by "
+                             "--shards); it requires --shard-ipc")
+        spec = json.loads(args.shard_ipc)
+        # per-worker span log: the workers inherit the parent's
+        # PUSHCDN_TRACE_LOG — suffix it so two shards never interleave
+        # writes in one JSONL (proto.trace reads the env at import, but
+        # lazily opens the file, so adjusting here is race-free)
+        trace_path = os.environ.get("PUSHCDN_TRACE_LOG")
+        if trace_path:
+            from pushcdn_tpu_torch.proto import trace as trace_mod
+            root, ext = os.path.splitext(trace_path)
+            trace_mod._LOG_PATH = f"{root}-shard{spec['shard']}{ext}"
     run_def = run_def_from_args(args.broker_transport, args.user_transport,
                                 args.discovery_endpoint, args.num_topics,
                                 args.global_permits, scheme=args.scheme)
@@ -262,7 +405,16 @@ async def amain(args: argparse.Namespace) -> None:
         device=args.device,
         # a mesh group's inter-broker plane is the mesh step
         form_mesh=args.mesh_shards is None,
+        # worker-shard role: worker 0 owns the mesh and the control tasks
+        shard_index=(spec["shard"] if spec else 0),
+        num_shards=(spec["num_shards"] if spec else 1),
+        bind_private=(spec is None or spec["shard"] == 0),
+        reuse_port=(spec is not None and "accept_fd" not in spec),
+        accept_handoff_fd=(spec.get("accept_fd") if spec else None),
     ))
+    if spec is not None:
+        runtime = sharding.runtime_from_spec(broker, spec)
+        runtime.attach()
     if args.mesh_shards is not None:
         attach_mesh_group(args, broker)
     # the plane warms up here; on the card a kernel that does not build

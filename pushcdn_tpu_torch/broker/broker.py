@@ -6,15 +6,20 @@ peer brokers), optional metrics endpoint; ``start`` spawns the five
 long-lived tasks (heartbeat, sync, whitelist, user listener, broker
 listener) and the process dies if any of them exits (lib.rs:302-318).
 
-A copy of ``pushcdn_tpu.broker.broker`` cut to the single-broker data
-path: admission control, the retention rings of the durable topics, the
-sharded data plane and the operator drain (re-homing) are not copied
-yet, so ``admission`` and ``shard_runtime`` stay None, ``durable`` binds
-topic names and serves wildcard subscribes only, and ``GET /drain`` is
-not registered. The device plane runs on
-``BrokerConfig.device`` (CUDA unless the caller passes ``"cpu"``); on
-the card its pump is one of the supervised tasks, so a device step that
-fails brings the broker down after its frames took the host path.
+A copy of ``pushcdn_tpu.broker.broker`` without admission control, the
+retention rings of the durable topics and the operator drain
+(re-homing): ``admission`` stays None, ``durable`` binds topic names and
+serves wildcard subscribes only, and ``GET /drain`` is not registered.
+A broker may be one of N worker shards of one identity: the worker sets
+``shard_runtime`` (``broker.sharding.runtime_from_spec``, or
+``attach_inprocess_shards`` on one loop), binds the user listener with
+``SO_REUSEPORT`` or adopts accepted sockets from its parent
+(``accept_handoff_fd``), and worker 0 alone owns the mesh links.
+
+The device plane runs on ``BrokerConfig.device`` (CUDA unless the caller
+passes ``"cpu"``); on the card its pump is one of the supervised tasks,
+so a device step that fails brings the broker down after its frames took
+the host path.
 """
 
 from __future__ import annotations
@@ -112,6 +117,9 @@ class BrokerConfig:
     num_shards: int = 1
     bind_private: bool = True
     reuse_port: bool = False
+    # fd-handoff fallback (no SO_REUSEPORT): adopt accepted sockets from
+    # the parent over this inherited unix-socketpair fd instead of binding
+    accept_handoff_fd: Optional[int] = None
 
 
 class Broker:
@@ -135,7 +143,7 @@ class Broker:
         self.host_links_kick = asyncio.Event()
         self._metrics_server = None
         self.device_plane = None
-        self.shard_runtime = None  # the sharded data plane: not copied
+        self.shard_runtime = None  # ShardRuntime when this is one of N workers
         self.durable = None  # DurableTopics, set in new()
         self.seen_dialing: set[str] = set()  # peers we're currently dialing
         # readiness state (ISSUE 5): listeners-bound latch, cached
@@ -191,7 +199,16 @@ class Broker:
         try:
             # public listener carries users, private carries peer brokers
             # (lib.rs:190-212)
-            if c.reuse_port:
+            if c.accept_handoff_fd is not None:
+                # sharded fd-handoff fallback: adopt accepted sockets from
+                # the parent acceptor instead of binding (no SO_REUSEPORT)
+                from pushcdn_tpu_torch.broker.sharding import (
+                    FdHandoffListener,
+                )
+                self.user_listener = FdHandoffListener(socket.socket(
+                    socket.AF_UNIX, socket.SOCK_STREAM,
+                    fileno=c.accept_handoff_fd))
+            elif c.reuse_port:
                 self.user_listener = await self.run_def.user_def.protocol.bind(
                     _substitute_local_ip(c.public_bind_endpoint),
                     certificate=self.certificate, reuse_port=True)

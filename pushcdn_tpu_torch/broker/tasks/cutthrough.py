@@ -24,10 +24,13 @@ This module closes that gap:
   behavior is identical even for mixes like ``[Subscribe(t),
   Broadcast(t)]`` landing in one chunk.
 
-The port's copy of ``pushcdn_tpu.broker.tasks.cutthrough`` for a broker of
-one shard without the fused io_uring pump: neither exists in this package
-yet, so the plan's fan-out always goes through the per-peer writers, and
-no peer sits on a sibling shard's handoff ring.
+The port's copy of ``pushcdn_tpu.broker.tasks.cutthrough`` without the
+fused io_uring pump, which this package does not have yet: the plan's
+fan-out to this worker's own peers always goes through the per-peer
+writers. On a broker of N worker shards (``broker.sharding``) the pairs
+bound for a sibling shard's user or mesh link are collected per shard and
+written to the shared-memory handoff ring as wire bytes with per-peer
+index lists (``ShardRuntime.handoff_chunk``).
 
 The scalar loops in ``handlers.py`` remain the correctness twin. Selection:
 ``PUSHCDN_ROUTE_CUTTHROUGH`` env (``auto``/``native``/``python``, with
@@ -181,6 +184,14 @@ def acquire(broker: "Broker", hook) -> Optional["RouteState"]:
     if impl not in ("auto", "native"):
         return None
     if hook is not no_hook or broker.device_plane is not None:
+        return None
+    durable = broker.durable
+    if durable is not None and durable.enabled \
+            and broker.connections.num_shards > 1:
+        # sharded durable topics route scalar: the owner shard's ordered
+        # drainer pins the replay-vs-live handover, and a chunk plan's
+        # egress would bypass it (unsharded durable brokers keep the
+        # cut-through plane — the retention scan rides the plan seam)
         return None
     state = getattr(broker, "_route_state", None)
     if state is None:
@@ -665,10 +676,12 @@ class RouteState:
         # concurrent drain (another connection's receive loop running
         # during a send await) may re-plan or rebuild, so nothing below
         # the first await may touch planner scratch or snapshot state.
-        # One shard: every planned peer is this broker's own user or link.
         user_cap = self.user_cap
+        local_shard = broker.connections.shard_id
         slot_user = self.slot_user
         slot_broker = self.slot_broker
+        user_shard = self.user_shard
+        broker_shard = self.broker_shard
         order = np.argsort(peers, kind="stable")
         speers = peers[order]
         sframes = frames[order]
@@ -678,6 +691,7 @@ class RouteState:
         buf = chunk.buf
         mv = None
         sends: list = []  # (is_user, key_or_ident, data, owner, n, cls)
+        ring: Optional[dict] = None  # shard -> [(kind, ident, idx array)]
         for s, e in zip(starts.tolist(), ends.tolist()):
             peer = int(speers[s])
             idx = sframes[s:e]
@@ -686,6 +700,17 @@ class RouteState:
                 if key is None:
                     # freed slot raced the plan: drop (defensive)
                     _note_fate_classes("dropped", "no_route", fc, idx)
+                    continue
+                shard = user_shard[peer]
+                if shard != local_shard:
+                    # sibling-shard user: cross-shard handoff (collected
+                    # per shard; written to the ring below, still inside
+                    # the synchronous phase — idx is COPIED because the
+                    # pair arrays are reusable planner scratch)
+                    if ring is None:
+                        ring = {}
+                    ring.setdefault(shard, []).append(
+                        (0, bytes(key), idx.copy()))
                     continue
                 target = (True, key)
             else:
@@ -696,8 +721,16 @@ class RouteState:
                     _note_fate_classes("dropped", "no_route", fc, idx)
                     continue
                 # mesh-bound pair group: the per-link conservation table
-                # counts here (the routing decision)
+                # counts here (the routing decision) whether the frames
+                # ride this shard's link or a sibling's ring
                 _note_link_classes(ident, fc, idx)
+                shard = broker_shard[b]
+                if shard is not None:
+                    if ring is None:
+                        ring = {}
+                    ring.setdefault(shard, []).append(
+                        (1, ident.encode(), idx.copy()))
+                    continue
                 target = (False, ident)
             first, last = int(idx[0]), int(idx[-1])
             if last - first + 1 == len(idx):
@@ -718,6 +751,12 @@ class RouteState:
             # (volume was already counted pair-level above)
             cls = int(fc[first]) & 3 if fc is not None else flowclass.LIVE
             sends.append((*target, data, owner, len(idx), cls))
+        if ring is not None:
+            # still phase 1 (synchronous): the ring write copies the wire
+            # bytes straight out of the pooled chunk into shared memory —
+            # pre-encoded chunks + per-peer index lists, no per-frame
+            # message objects, no re-serialization
+            broker.shard_runtime.handoff_chunk(buf, offs, lens, ring)
         # Phase 2 — sends (may await). Connections are looked up by
         # stable identity here, like the scalar flush: a peer that left
         # mid-batch drops its frames; failure ⇒ removal.
@@ -789,7 +828,10 @@ class RouteState:
             if pruned:
                 # durable stamp rides the same synchronous block as the
                 # route decision (scalar-twin parity with handlers.py);
-                # on_publish always returns True on a broker of one shard
+                # on_publish always returns True here — acquire() routes
+                # sharded durable brokers scalar, so this plane only sees
+                # the unsharded retain-and-route-normally case (and this
+                # package retains no topics yet)
                 durable = broker.durable
                 if durable is None or durable.on_publish(
                         pruned, message, raw, to_users_only=not is_user):

@@ -21,12 +21,15 @@ Latency accounting: each frame's pool permit lives from socket-read to
 last-fan-out-write; its lifetime feeds the LATENCY histogram
 (limiter.AllocationPermit), mirroring the reference's latency proxy.
 
-A copy of ``pushcdn_tpu.broker.tasks.handlers`` without the sharded data
-plane's handoff ring. Each receive loop first asks the cut-through plane
-(``cutthrough.acquire``: the native route plan, no device plane, the
-default hook) and, when it is eligible, routes whole ``FrameChunk`` batches
-through it; otherwise, and for ``PUSHCDN_ROUTE_CUTTHROUGH=python``, it
-runs the scalar loop below, which stays the correctness twin.
+A copy of ``pushcdn_tpu.broker.tasks.handlers``. Each receive loop first
+asks the cut-through plane (``cutthrough.acquire``: the native route plan,
+no device plane, the default hook) and, when it is eligible, routes whole
+``FrameChunk`` batches through it; otherwise, and for
+``PUSHCDN_ROUTE_CUTTHROUGH=python``, it runs the scalar loop below, which
+stays the correctness twin. On a broker of N worker shards
+(``broker.sharding``) a peer on a sibling shard is reached through the
+shared-memory handoff ring: ``EgressBatch.to_shard`` collects its clones
+and the flush hands each sibling one ring record.
 """
 
 from __future__ import annotations
@@ -97,12 +100,16 @@ class EgressBatch:
     into the batch, so span emission can tell a routed message from a
     dropped one (unknown recipient, no interest)."""
 
-    __slots__ = ("broker", "users", "brokers", "appended", "_traces")
+    __slots__ = ("broker", "users", "brokers", "shards", "appended",
+                 "_traces")
 
     def __init__(self, broker: "Broker"):
         self.broker = broker
         self.users: dict = {}
         self.brokers: dict = {}
+        # sharded data plane: {shard -> {(kind, ident) -> [clones]}} —
+        # flushed as ONE handoff-ring record per shard
+        self.shards: dict = {}
         self.appended = 0
         self._traces: Optional[list] = None
 
@@ -131,6 +138,21 @@ class EgressBatch:
         # decision, where the per-frame class is exact on both ends
         ledger_mod.note_link_sent(identifier, cls)
 
+    def to_shard(self, shard: int, kind: int, ident, raw: Bytes,
+                 cls: int = flowclass.LIVE) -> None:
+        """Queue a fan-out clone for a peer living on a sibling shard
+        (``kind`` is shardring.KIND_USER/KIND_BROKER)."""
+        targets = self.shards.get(shard)
+        if targets is None:
+            targets = self.shards[shard] = {}
+        lst = targets.get((kind, ident))
+        if lst is None:
+            lst = targets[(kind, ident)] = []
+        lst.append(raw.clone())
+        self.appended += 1
+        if kind == 1:  # shardring.KIND_BROKER: a mesh link via shard 0
+            ledger_mod.note_link_sent(ident, cls)
+
     def release_all(self) -> None:
         for frames in self.users.values():
             for f in frames:
@@ -140,6 +162,39 @@ class EgressBatch:
             for f in frames:
                 f.release()
         self.brokers.clear()
+        for targets in self.shards.values():
+            for frames in targets.values():
+                for f in frames:
+                    f.release()
+        self.shards.clear()
+
+    def _flush_shards(self) -> None:
+        """Hand each sibling shard its batch as one ring record: every
+        distinct frame's bytes written once, each peer carrying its
+        frame-index list (no re-serialization at the boundary). Synchronous
+        — ring-full degrades to the runtime's counted relay fallback."""
+        runtime = self.broker.shard_runtime
+        for shard, targets in self.shards.items():
+            frames: list = []
+            index_of: dict = {}
+            peers = []
+            for (kind, ident), clones in targets.items():
+                idx = []
+                for c in clones:
+                    key = id(c.data)
+                    i = index_of.get(key)
+                    if i is None:
+                        i = index_of[key] = len(frames)
+                        frames.append(c.data)
+                    idx.append(i)
+                peers.append((kind,
+                              ident if isinstance(ident, bytes)
+                              else ident.encode(), idx))
+            runtime.handoff(shard, frames, peers)
+            for clones in targets.values():
+                for c in clones:
+                    c.release()
+        self.shards.clear()
 
     @staticmethod
     async def _send_batch(conn, frames: list) -> None:
@@ -170,6 +225,12 @@ class EgressBatch:
         broker = self.broker
         traces, self._traces = self._traces, None
         try:
+            if self.shards:
+                # cross-shard handoff first: synchronous ring writes, so a
+                # backpressured local peer below can't delay the sibling
+                # (per-peer targets are disjoint — order across them is
+                # not observable)
+                self._flush_shards()
             # brokers first (reference fan-out order, handler.rs:240-272)
             while self.brokers:
                 ident, frames = self.brokers.popitem()
@@ -282,6 +343,48 @@ def route_direct(broker: "Broker", recipient: bytes, raw: Bytes,
 def _route_direct(broker: "Broker", recipient: bytes, raw: Bytes,
                   to_user_only: bool, egress: EgressBatch) -> None:
     conns = broker.connections
+    if conns.num_shards > 1:
+        # sharded data plane: "our user" spans every worker shard of this
+        # identity. A sibling's user rides the handoff ring (allowed even
+        # for broker-origin frames — the sibling IS this broker); a mesh
+        # owner reachable only via shard 0's links rides the ring too.
+        # Precedence mirrors the unsharded path (and the cut-through
+        # plan's dmap): the DirectMap owner wins, so a user the mesh
+        # already re-homed elsewhere is forwarded even while the local
+        # eviction delta is still in flight.
+        from pushcdn_tpu_torch.broker import shardring
+        owner = conns.get_broker_identifier_of_user(recipient)
+        if owner is not None and owner != conns.identity:
+            if to_user_only:
+                # one-hop rule: never re-forward. But a forwarded direct
+                # that raced a migration eviction here (the sender's
+                # DirectMap replica hadn't caught up yet) can still reach
+                # the user over the ``parting`` connection the client is
+                # draining — chasing it beats a silent delivered-loss.
+                if recipient in conns.parting:
+                    egress.to_user(recipient, raw)
+                return
+            if owner in conns.brokers:
+                egress.to_broker(owner, raw)
+            else:
+                link_shard = conns.remote_broker_shard.get(owner)
+                if link_shard is not None:
+                    egress.to_shard(link_shard, shardring.KIND_BROKER,
+                                    owner, raw)
+            return
+        # owner is this box — or absent from this worker's replica
+        # (sibling users are mirrored into the DirectMap on shard 0
+        # only): deliver locally, else hand off to the owning shard
+        if recipient in conns.users:
+            egress.to_user(recipient, raw)
+            return
+        shard = conns.remote_user_shard.get(recipient)
+        if shard is not None:
+            egress.to_shard(shard, shardring.KIND_USER, recipient, raw)
+            return
+        if recipient in conns.parting:  # evicted mid-flight: chase
+            egress.to_user(recipient, raw)
+        return  # unknown/stale user: drop
     owner = conns.get_broker_identifier_of_user(recipient)
     if owner == conns.identity:
         egress.to_user(recipient, raw)
@@ -369,6 +472,39 @@ def _route_broadcast(broker: "Broker", topics: Sequence[int], raw: Bytes,
                 list(topics), to_users_only))
             interest_cache[key] = hit
         users, brokers = hit[1]
+    conns = broker.connections
+    if conns.num_shards > 1:
+        # sharded data plane: the interest tables span the whole box, so
+        # a hit may live on a sibling shard (user) or be reachable only
+        # through shard 0's mesh links (broker) — ride the handoff ring
+        from pushcdn_tpu_torch.broker import shardring
+        local_users = conns.users
+        local_brokers = conns.brokers
+        for ident in brokers:
+            if ident in exclude_brokers:
+                continue
+            if ident in local_brokers:
+                egress.to_broker(ident, raw, cls=cls)
+            else:
+                link_shard = conns.remote_broker_shard.get(ident)
+                if link_shard is not None:
+                    egress.to_shard(link_shard, shardring.KIND_BROKER,
+                                    ident, raw, cls=cls)
+        if not users_via_device:
+            for user in users:
+                if user in local_users:
+                    egress.to_user(user, raw)
+                else:
+                    shard = conns.remote_user_shard.get(user)
+                    if shard is not None:
+                        egress.to_shard(shard, shardring.KIND_USER, user,
+                                        raw)
+                    elif user in conns.parting:
+                        # interest rows outlive the eviction through the
+                        # parting grace: the chase delivery (see
+                        # Connections.remove_user)
+                        egress.to_user(user, raw)
+        return
     for ident in brokers:
         if ident not in exclude_brokers:
             egress.to_broker(ident, raw, cls=cls)

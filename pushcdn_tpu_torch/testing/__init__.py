@@ -3,7 +3,8 @@ the in-process whole-system fixtures (``Cluster``: a marshal and N
 brokers on one discovery file; ``MeshCluster``: a marshal and the N
 broker shards of one mesh group); the two-process deployment
 (``two_host``) and the worker modules that run one process of a pair
-(``lockstep_worker``, ``two_host_worker``, ``burst_worker``)."""
+(``lockstep_worker``, ``two_host_worker``, ``burst_worker``); the
+in-process worker-shard harness (``shardharness.run_sharded``)."""
 
 from pushcdn_tpu_torch.testing.cluster import (  # noqa: F401
     Cluster,

@@ -17,6 +17,7 @@ import os
 import signal
 import socket
 import subprocess
+import urllib.error
 import urllib.request
 
 import pytest
@@ -298,3 +299,180 @@ async def test_multihost_broker_binaries_end_to_end(tmp_path):
             if p.poll() is None:
                 p.kill()
             p.wait()
+
+
+# ---------------------------------------------------------------------------
+# --shards: one broker identity as N worker processes (worker shards)
+# ---------------------------------------------------------------------------
+
+def _get(port: int, path: str) -> tuple:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+async def _sharded_broker_end_to_end(tmp_path, handoff: bool) -> None:
+    """A marshal and ``broker --shards 2`` without a plane: two clients on
+    different workers exchange a broadcast and a direct; the supervisor's
+    ``/metrics`` carries both workers' ``shard`` labels and the ring
+    records; every process exits 0 on SIGTERM."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import Tcp, TcpTls
+    from pushcdn_tpu_torch.proto.util import mnemonic
+
+    db = str(tmp_path / "cdn.sqlite")
+    # the workers' own endpoints sit on the supervisor's metrics port + 1
+    # and + 2: take three ports in a row
+    pub, priv, marshal = _free_ports(3)
+    metrics = _free_ports(1)[0]
+    while not all(_port_free(metrics + k) for k in (1, 2)):
+        metrics = _free_ports(1)[0]
+    transport, protocol = ("tcp", Tcp) if handoff else ("tcp+tls", TcpTls)
+    env = {"PUSHCDN_SHARD_ACCEPT": "handoff"} if handoff else {}
+    logs = {n: tmp_path / f"{n}.log" for n in ("broker", "marshal")}
+    procs = {
+        "broker": spawn_binary(
+            "broker", *_broker_args(
+                db, pub, priv, "--metrics-bind-endpoint",
+                f"127.0.0.1:{metrics}", "--user-transport", transport,
+                "--shards", "2"),
+            env_extra=env, log_path=logs["broker"]),
+        "marshal": spawn_binary(
+            "marshal", "--discovery-endpoint", db,
+            "--bind-endpoint", f"127.0.0.1:{marshal}",
+            "--user-transport", transport, log_path=logs["marshal"]),
+    }
+
+    async def topology():
+        status, body = await asyncio.to_thread(_get, metrics,
+                                               "/debug/topology")
+        return json.loads(body) if status == 200 else None
+
+    async def shard_of(client):
+        want = mnemonic(client.public_key)
+        async with asyncio.timeout(20):
+            while True:
+                topo = await topology()
+                for u in (topo or {}).get("users", []):
+                    if u["key"] == want:
+                        return u["shard"]
+                await asyncio.sleep(0.05)
+
+    clients, placed = [], {}
+    try:
+        for seed in range(9100, 9120):   # bounded retries for a spread
+            c = Client(ClientConfig(
+                marshal_endpoint=f"127.0.0.1:{marshal}",
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+                protocol=protocol, subscribed_topics={0}))
+            async with asyncio.timeout(45):   # cold start + registration
+                await c.ensure_initialized()
+            shard = await shard_of(c)
+            if shard in placed:
+                c.close()
+                continue
+            placed[shard] = c
+            clients.append(c)
+            if len(placed) == 2:
+                break
+        assert sorted(placed) == [0, 1], \
+            f"no client landed on the second worker: {sorted(placed)}"
+        alice, bob = placed[0], placed[1]
+        await bob.send_broadcast_message([0], b"across workers")
+        for c in clients:
+            m = await asyncio.wait_for(c.receive_message(), 20)
+            assert isinstance(m, Broadcast) and \
+                bytes(m.message) == b"across workers"
+        await bob.send_direct_message(alice.public_key, b"and back")
+        m = await asyncio.wait_for(alice.receive_message(), 20)
+        assert isinstance(m, Direct) and bytes(m.message) == b"and back"
+        status, text = await asyncio.to_thread(_get, metrics, "/metrics")
+        assert status == 200
+        assert 'shard="0"' in text and 'shard="1"' in text
+        assert "cdn_shard_workers 2" in text
+        ring = sum(float(line.split()[-1]) for line in text.splitlines()
+                   if line.startswith("cdn_shard_handoff_records{")
+                   and 'path="ring"' in line)
+        assert ring >= 2, "the broadcast and the direct crossed no ring"
+        # host-only workers: torch never loads
+        info = [line for line in text.splitlines()
+                if line.startswith("cdn_build_info{")]
+        assert len(info) == 2 and all('torch="absent"' in i for i in info)
+        status, body = await asyncio.to_thread(_get, metrics, "/readyz")
+        assert status == 200, body
+        assert {"shard0:listeners", "shard1:listeners"} <= \
+            set(json.loads(body)["checks"])
+        for c in clients:
+            c.close()
+        assert all(p.poll() is None for p in procs.values()), \
+            "a binary died during the test"
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(p.wait, 40)
+               for n, p in procs.items()}
+        assert rcs == {"broker": 0, "marshal": 0}, \
+            {n: logs[n].read_text()[-3000:] for n in procs}
+        # each worker drained and logged its exit line before the
+        # supervisor reaped it
+        assert logs["broker"].read_text().count("device plane exit {") == 2
+    finally:
+        for c in clients:
+            c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def _port_free(port: int) -> bool:
+    s = socket.socket()
+    try:
+        s.bind(("127.0.0.1", port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
+async def test_sharded_broker_binary_end_to_end(tmp_path):
+    """``--shards 2`` with users spread by ``SO_REUSEPORT`` over TCP+TLS."""
+    await _sharded_broker_end_to_end(tmp_path, handoff=False)
+
+
+async def test_sharded_broker_binary_fd_handoff(tmp_path):
+    """The same with ``reuseport_available`` False in the supervisor
+    (``PUSHCDN_SHARD_ACCEPT=handoff``): it binds the user port once and
+    deals accepted sockets to the workers over ``SCM_RIGHTS``."""
+    await _sharded_broker_end_to_end(tmp_path, handoff=True)
+
+
+@pytest.mark.parametrize("args,env,needle", [
+    (("--shards", "2", "--device-plane", "--device", "cpu"), {},
+     "--shards is a host-data-plane feature"),
+    (("--shards", "2", "--mesh-shards", "2", "--device", "cpu"), {},
+     "--shards is a host-data-plane feature"),
+    (("--shards", "2"), {"PUSHCDN_SHARD_ACCEPT": "handoff"},
+     "supports only --user-transport tcp"),
+], ids=["plane", "mesh-group", "handoff-tls"])
+def test_sharded_broker_binary_refusals(tmp_path, args, env, needle):
+    """The JAX binary's refusals, word for word: ``--shards`` with a
+    device plane or a mesh group, and the fd-handoff acceptor with any
+    user transport but ``tcp``; no worker ever starts."""
+    pub, priv = _free_ports(2)
+    p = spawn_binary("broker", *_broker_args(str(tmp_path / "d.sqlite"),
+                                             pub, priv, *args),
+                     env_extra=env)
+    try:
+        out, _ = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+    assert p.returncode not in (0, None), out[-2000:]
+    assert needle in out, out[-2000:]
+    assert "shard worker" not in out and "broker serving" not in out

@@ -406,6 +406,7 @@ class _PlanBroker:
         self.run_def = p.def_.testing_run_def()
         self.device_plane = None
         self.admission = None
+        self.durable = None
 
 
 def _vmap_payload(p, owner: str, entries) -> bytes:

@@ -223,7 +223,10 @@ print(line)
     "pushcdn_tpu_torch.bin.client", "pushcdn_tpu_torch.bin.broker",
     "pushcdn_tpu_torch.broker.tasks.cutthrough",
     "pushcdn_tpu_torch.native.routeplan",
-    "pushcdn_tpu_torch.testing.routebench"])
+    "pushcdn_tpu_torch.testing.routebench",
+    "pushcdn_tpu_torch.broker.sharding",
+    "pushcdn_tpu_torch.broker.shardring",
+    "pushcdn_tpu_torch.testing.shardharness"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -233,6 +236,104 @@ def test_host_only_processes_do_not_import_torch(module):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert 'torch="absent"' in r.stdout and 'backend="unloaded"' in r.stdout
+
+
+# installed as ``sitecustomize`` ahead of the repo in every process of a
+# sharded broker: an import of torch, JAX or the JAX package is logged and
+# refused
+_IMPORT_TRAP = r"""
+import os, sys, traceback
+
+class _Trap:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib", "pushcdn_tpu"):
+            with open(os.environ["PUSHCDN_IMPORT_TRAP_LOG"], "a") as f:
+                f.write(f"{os.getpid()} imported {name}\n")
+                traceback.print_stack(file=f)
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _Trap())
+with open(os.environ["PUSHCDN_IMPORT_TRAP_LOG"] + ".armed", "a") as f:
+    f.write(f"{os.getpid()}\n")
+"""
+
+
+def test_sharded_broker_processes_do_not_import_torch(tmp_path):
+    """A ``--shards 2`` supervisor and its two workers start, serve the
+    merged endpoints and exit 0 on SIGTERM without any of them importing
+    torch, JAX or the JAX package; each worker's ``cdn_build_info`` reads
+    torch as absent and the backend as unloaded."""
+    import json
+    import os
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    from pushcdn_tpu_torch.bin.common import spawn_binary
+
+    trap_dir = tmp_path / "trap"
+    trap_dir.mkdir()
+    (trap_dir / "sitecustomize.py").write_text(_IMPORT_TRAP)
+    log = tmp_path / "imports.log"
+    log.write_text("")
+
+    def free_port() -> int:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    pub, priv = free_port(), free_port()
+    metrics = free_port()
+    proc = spawn_binary(
+        "broker", "--discovery-endpoint", str(tmp_path / "d.sqlite"),
+        "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+        "--public-bind-endpoint", f"127.0.0.1:{pub}",
+        "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+        "--private-bind-endpoint", f"127.0.0.1:{priv}",
+        "--metrics-bind-endpoint", f"127.0.0.1:{metrics}",
+        "--user-transport", "tcp", "--shards", "2",
+        env_extra={"PYTHONPATH": f"{trap_dir}{os.pathsep}{ROOT}",
+                   "PUSHCDN_IMPORT_TRAP_LOG": str(log)},
+        log_path=tmp_path / "broker.log")
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{metrics}{path}",
+                                    timeout=5) as r:
+            return r.status, r.read().decode()
+
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                status, body = get("/readyz")
+                if status == 200 and json.loads(body)["checks"]["workers"][
+                        "ok"]:
+                    break
+            except OSError:
+                pass
+            assert proc.poll() is None and time.monotonic() < deadline, \
+                (tmp_path / "broker.log").read_text()[-3000:]
+            time.sleep(0.1)
+        _, text = get("/metrics")
+        info = [line for line in text.splitlines()
+                if line.startswith("cdn_build_info{")]
+        assert len(info) == 2, info
+        assert all('torch="absent"' in i and 'backend="unloaded"' in i
+                   for i in info), info
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(40) == 0, (tmp_path / "broker.log").read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    assert log.read_text() == "", log.read_text()[-3000:]
+    # the trap was armed in the supervisor and in both workers
+    armed = set((tmp_path / "imports.log.armed").read_text().split())
+    assert len(armed) >= 3, armed
 
 
 _HOST_BROKER = r"""
