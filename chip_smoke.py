@@ -193,7 +193,42 @@ Phases, each printing one JSON line:
    and every process must exit 0 on SIGTERM; msgs/s and p50 / p99 beside
    phase 9's plane-less broker. (c) ``--shards 2 --device-plane`` must
    exit non-zero with the JAX binary's message. One ``shards`` line per
-   run.
+   run;
+15. durable topics, admission and re-homing under the dense plane
+   (appended after phase 14): (a) phase 8's dense broker retaining
+   topics 0-31 (``PUSHCDN_RETAIN_TOPICS``, rings of the default 1024
+   entries), its plane widened to 4384 user slots so the 256 late
+   subscribers and the 32 last-value readers sit on it too; phase 8's
+   uniform burst, then the 256 late users each ``SubscribeFrom`` one
+   retained topic from seq 0, a second burst, and 32 last-value reads.
+   Both bursts' deliveries must equal the oracle's in publisher order per
+   lane, the late users' included, all routed on the plane with every
+   busy step egressed natively; each ring must hold the broadcasts the
+   oracle retained there (whether any ring evicts is worked out from the
+   mix first and printed), with contiguous sequence numbers and each
+   publisher's frames in send order; each replay must equal its ring's
+   snapshot, each last value the ring's newest entry, and
+   ``cdn_retention_ring_entries`` the rings' sum. (b) A broker with a
+   1024-slot dense plane and ``PUSHCDN_MAX_CONNS_USER=64``,
+   ``PUSHCDN_SUBSCRIBE_RATE=20``, ``_BURST=20`` and
+   ``PUSHCDN_SHED_READY_S=2``: the 65th user is refused before
+   authentication (``permit=0``, a ``shed:`` context; a real client
+   through an in-process marshal raises ``Error(SHED)`` with the
+   readiness window as its retry hint), one user's 100 subscribe
+   mutations meet the bucket (every shed answered by a typed notice and
+   counted by ``cdn_route_shed_total{tier="subscribe"}``), a broadcast
+   on a shed topic reaches no one while the plane launches, and
+   ``/readyz``'s admission check reads false, then true 2 s later. (c) A
+   marshal and ``broker --device-plane`` (A) on a fresh discovery file,
+   256 TCP+TLS clients on it, then broker B (``--device-plane``); a
+   SIGTERM to A must re-home all 256 (its ``drain re-home`` line), each
+   client reaching B with its pre-issued permit and without a marshal
+   round trip; a uniform burst from 16 clients must then reach every
+   client through B's plane as the oracle says (a multiset), B's
+   ``/metrics`` must show ``cdn_device_messages_routed`` > 0 and its exit
+   line launches after its warm-up, and ``GET /drain`` on B, which has
+   no peer left, must report ``no_target`` and keep the users. One
+   ``durable`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -2553,9 +2588,10 @@ def wait_pair(procs, d: str, label: str, timeout: float) -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, p in enumerate(procs):
-        check(p.returncode == 0, f"{label}: rank {rank} exited with "
-              f"{p.returncode}:\n{log_tail(os.path.join(d, f'rank{rank}.log'))}")
+    failed = [f"rank {rank} exited with {p.returncode}:\n"
+              f"{log_tail(os.path.join(d, f'rank{rank}.log'))}"
+              for rank, p in enumerate(procs) if p.returncode != 0]
+    check(not failed, f"{label}: " + "\n".join(failed))
 
 
 def lockstep_scripts(shape: dict) -> list:
@@ -2834,6 +2870,8 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
           f"{deliveries} deliveries")
     check(not any(o["disabled"] for o in outs),
           f"{label}: a group disabled itself")
+    check(all(o["overflows"] == 0 for o in outs), f"{label}: the groups "
+          f"staged {[o['overflows'] for o in outs]} frames to the host path")
     links = [n for o in outs for n in o["host_links"]]
     check(links == [0] * B, f"{label}: host broker links {links}")
     for o in outs:
@@ -2908,7 +2946,9 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
         warmup_launches=[o["warm_launches"] for o in outs],
         delivery_matrix_cuda=sum(sum(o["busy"]["launches_per_step"])
                                  for o in outs),
-        host_links=links, run_s=run_s)
+        host_links=links,
+        directory_refresh_max_gap_s=[o["directory_max_gap_s"] for o in outs],
+        run_s=run_s)
     return line, (bursts, start, pubs, plan), line["delivery_matrix_cuda"]
 
 
@@ -3650,6 +3690,739 @@ def shards_refusal() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: durable topics, admission and re-homing under the dense plane
+# ---------------------------------------------------------------------------
+
+# phase 8's broker with 32 of its 256 topics retained; the plane's user
+# slots take phase 8's 4096 users plus the 256 late subscribers and the 32
+# last-value readers, so every user sits on the plane
+DURABLE = dict(BROKER, retained=32, late_users=256, lvc_users=32,
+               retain_count=1024)
+# the admission run: 1024 user slots, budgets as an operator sets them
+ADMISSION = dict(BROKER, users=64, plane_slots=1024, max_user_conns=64,
+                 subscribe_rate=20, subscribe_burst=20, shed_ready_s=2,
+                 mutations=100)
+# the re-homing run: phase 9's binaries, 256 TCP+TLS clients, 16 of them
+# publishing one uniform burst
+REHOME = dict(CLUSTER, users=256, publishers=16, auth_concurrency=64)
+
+
+class EnvKnobs:
+    """Set environment knobs for the brokers built inside the block (a
+    broker reads them once, in ``Broker.new``), and restore them."""
+
+    def __init__(self, **knobs):
+        self.knobs = {k: str(v) for k, v in knobs.items()}
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.knobs.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tail_of(payload) -> tuple:
+    """(publisher, seq) of a smoke payload."""
+    pub, seq, _ = TAIL.unpack_from(payload, len(payload) - TAIL.size)
+    return pub, seq
+
+
+def retained_oracle(bursts, retained: int) -> dict:
+    """Per retained topic, the (publisher, seq) of every broadcast naming
+    it, burst by burst in the order each publisher sends them."""
+    want = {t: [] for t in range(retained)}
+    for burst in bursts:
+        for pub_msgs in burst.messages:
+            for direct, target, head in pub_msgs:
+                if direct:
+                    continue
+                for t in target:
+                    if t < retained:
+                        want[t].append(tail_of(head + bytes(8)))
+    return want
+
+
+def late_burst(burst: Burst, late_topics: list, base: int,
+               first_uid: int) -> Burst:
+    """``burst`` with the late users (uids ``first_uid``.., each
+    subscribed to ``late_topics[i]``) added to its oracle."""
+    codes, nbytes = [burst.codes], list(burst.nbytes)
+    payload = list(burst.payload_bytes)
+    by_topic = {}
+    for i, t in enumerate(late_topics):
+        by_topic.setdefault(t, []).append(first_uid + i)
+    nbytes += [0] * len(late_topics)
+    payload += [0] * len(late_topics)
+    for frames, msgs in zip(burst.frames, burst.messages):
+        for frame, (direct, target, head) in zip(frames, msgs):
+            if direct:
+                continue
+            uids = sorted({u for t in target for u in by_topic.get(t, ())})
+            if not uids:
+                continue
+            pub, seq = tail_of(head + bytes(8))
+            lane = int(len(frame) > base)
+            code = ((pub * 2 + lane) << 32) | seq
+            codes.append((np.asarray(uids, np.int64) << 40) | code)
+            for u in uids:
+                nbytes[u] += len(frame)
+                payload[u] += len(head) + 8
+    return Burst(burst.frames, burst.messages, np.concatenate(codes),
+                 np.asarray(nbytes, np.int64), np.asarray(payload, np.int64))
+
+
+async def connect_user(run, key: bytes, topics=()):
+    """Inject one more user under ``key``, as ``inject_users`` does."""
+    from pushcdn_tpu_torch.broker.tasks.handlers import user_receive_loop
+    from pushcdn_tpu_torch.broker.test_harness import TestUser
+    from pushcdn_tpu_torch.proto.transport.memory import (
+        gen_testing_connection_pair,
+    )
+    from pushcdn_tpu_torch.proto.util import AbortOnDropHandle
+    broker = run.broker
+    local, remote = await gen_testing_connection_pair(broker.limiter)
+    task = asyncio.create_task(user_receive_loop(broker, key, local))
+    broker.connections.add_user(key, local, list(topics),
+                                AbortOnDropHandle(task))
+    user = TestUser(key, remote)
+    run.connected_users.append(user)
+    return user
+
+
+async def recv_frames(remote, n: int, label: str, quiet: float = 0.2):
+    """Exactly ``n`` frames from ``remote``, then a quiet window in which
+    a duplicate would land."""
+    out = []
+    try:
+        async with asyncio.timeout(60):
+            while len(out) < n:
+                for raw in await remote.recv_raw_many():
+                    out.append(bytes(raw.data))
+                    raw.release()
+    except TimeoutError:
+        raise SmokeFailure(f"{label}: {len(out)} of {n} frames arrived") \
+            from None
+    try:
+        raws = await asyncio.wait_for(remote.recv_raw_many(), quiet)
+        extra = len(raws)
+    except TimeoutError:
+        extra = 0
+    check(extra == 0, f"{label}: {extra} frames beyond the {n} expected")
+    return out
+
+
+def check_ring(label: str, durable, t: int, want: list, cap: int) -> None:
+    """Ring ``t`` holds the last min(n, cap) of its n retained broadcasts,
+    sequence numbers contiguous up to the ring's last, each publisher's
+    frames in send order."""
+    entries = durable.snapshot(t, 0)
+    got = [tail_of(e.payload) for e in entries]
+    n = len(want)
+    check(len(got) == min(n, cap),
+          f"{label}: ring {t} holds {len(got)} of min({n}, {cap})")
+    check(set(got) <= set(want) and (n > cap or set(got) == set(want)),
+          f"{label}: ring {t} holds frames the oracle did not retain there")
+    seqs = [e.seq for e in entries]
+    check(seqs == list(range(n - len(got) + 1, n + 1)),
+          f"{label}: ring {t}'s sequence numbers are not contiguous to {n}")
+    by_pub = {}
+    for pub, seq in got:
+        by_pub.setdefault(pub, []).append(seq)
+    check(all(s == sorted(s) for s in by_pub.values()),
+          f"{label}: ring {t} holds a publisher's frames out of order")
+
+
+async def durable_run(device, shape: dict = DURABLE, seed: int = 40) -> dict:
+    """Phase 15 (a): phase 8's dense broker retaining topics 0..31. Burst
+    1 from phase 8's uniform seed, late users replaying one retained
+    topic each from seq 0, burst 2 live to everyone, then last-value
+    reads. Every check of the run, then its numbers."""
+    from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+    from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.broker.test_harness import TestRun
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.proto import metrics
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.def_ import testing_run_def
+    from pushcdn_tpu_torch.proto.message import (
+        SEQ_LAST,
+        Retained,
+        SubscribeFrom,
+        deserialize,
+    )
+    from pushcdn_tpu_torch.proto.topic import TopicSpace
+    from pushcdn_tpu_torch.proto.transport.memory import Memory
+
+    label = "durable retained topics"
+    U, base, R = shape["users"], shape["frame_bytes"], shape["retained"]
+    late, lvc = shape["late_users"], shape["lvc_users"]
+    cap = shape["retain_count"]
+    sc = BrokerScenario("uniform", seed, shape)
+    burst1 = sc.burst()
+    burst2 = sc.burst()
+    want = retained_oracle([burst1, burst2], R)
+    # worked out from the mix before the run: does any ring evict?
+    per_ring = [len(v) for v in want.values()]
+    evicts = max(per_ring) > cap
+    late_topics = [i % R for i in range(late)]
+    plane_cfg = DevicePlaneConfig(
+        num_user_slots=U + late + lvc, ring_slots=shape["ring_slots"],
+        frame_bytes=base, extra_lanes=(shape["extra_lane"],),
+        topic_words=shape["topic_words"], bypass_max_items=0,
+        delivery_impl="dense")
+    db = os.path.join(HERE, ".build", f"smoke-durable-{os.getpid()}.sqlite")
+    prev_window = Memory.set_duplex_window(256 * 1024)
+    t_run = time.perf_counter()
+    try:
+        with EnvKnobs(PUSHCDN_RETAIN_TOPICS=f"0-{R - 1}",
+                      PUSHCDN_RETAIN_COUNT=cap):
+            broker = await Broker.new(BrokerConfig(
+                run_def=testing_run_def(
+                    topics=TopicSpace.range(shape["topics"])),
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+                discovery_endpoint=db,
+                public_advertise_endpoint="smoke-durable-pub",
+                public_bind_endpoint="smoke-durable-pub",
+                private_advertise_endpoint="smoke-durable-priv",
+                private_bind_endpoint="smoke-durable-priv",
+                heartbeat_interval_s=3600, sync_interval_s=3600,
+                whitelist_interval_s=3600, device_plane=plane_cfg,
+                device=device))
+        await broker.start()
+        run = TestRun(broker=broker)
+        try:
+            await run.inject_users(sc.topics)
+            plane, durable = broker.device_plane, broker.durable
+            check(durable.enabled and sorted(durable.topics) == list(range(R)),
+                  f"{label}: the broker retains {sorted(durable.topics)}")
+            dk.LAUNCHES = 0
+            got1, bytes1, _, busy1 = await publish_and_drain(
+                label + " burst 1", [u.remote for u in run.connected_users],
+                [burst1], base)
+            # the late users: each replays one retained topic from seq 0
+            late_users = [await connect_user(run, b"late-%d" % i)
+                          for i in range(late)]
+            snapshots = {t: [(e.seq, bytes(e.payload))
+                             for e in durable.snapshot(t, 0)]
+                         for t in range(R)}
+            for i, u in enumerate(late_users):
+                await u.remote.send_message(
+                    SubscribeFrom(topic=late_topics[i], seq=0), flush=True)
+            t0 = time.perf_counter()
+            replays = await asyncio.gather(*(
+                recv_frames(u.remote, len(snapshots[late_topics[i]]),
+                            f"{label}: late user {i}'s replay")
+                for i, u in enumerate(late_users)))
+            replay_s = time.perf_counter() - t0
+            for i, frames in enumerate(replays):
+                t = late_topics[i]
+                msgs = [deserialize(f) for f in frames]
+                check(all(isinstance(m, Retained) and m.topic == t
+                          for m in msgs),
+                      f"{label}: late user {i}'s replay is not topic {t}'s")
+                check([(m.seq, bytes(m.payload)) for m in msgs]
+                      == snapshots[t],
+                      f"{label}: late user {i}'s replay differs from ring {t}")
+            # burst 2: live to the 4096 users and the late subscribers
+            b2 = late_burst(burst2, late_topics, base, U)
+            got2, bytes2, _, busy2 = await publish_and_drain(
+                label + " burst 2", [u.remote for u in run.connected_users],
+                [b2], base)
+            # the last-value readers
+            lvc_users = [await connect_user(run, b"lvc-%d" % t)
+                         for t in range(lvc)]
+            for t, u in enumerate(lvc_users):
+                await u.remote.send_message(
+                    SubscribeFrom(topic=t % R, seq=SEQ_LAST), flush=True)
+            newest = [durable.snapshot(t % R, SEQ_LAST) for t in range(lvc)]
+            lasts = await asyncio.gather(*(
+                recv_frames(u.remote, len(newest[t]),
+                            f"{label}: last value {t}")
+                for t, u in enumerate(lvc_users)))
+            for t, frames in enumerate(lasts):
+                check(len(want[t % R]) == 0 or len(frames) == 1,
+                      f"{label}: last_value({t % R}) returned nothing")
+                for frame, e in zip(frames, newest[t]):
+                    m = deserialize(frame)
+                    check(isinstance(m, Retained)
+                          and (m.seq, bytes(m.payload))
+                          == (e.seq, bytes(e.payload))
+                          and e.seq == len(want[t % R]),
+                          f"{label}: last_value({t % R}) is not the "
+                          "ring's newest")
+            launches = dk.LAUNCHES
+            for t in range(R):
+                check_ring(label, durable, t, want[t], cap)
+            stats = durable.stats()
+            text = metrics.render_all()
+            gauge = sum(float(line.split()[-1]) for line in text.splitlines()
+                        if line.startswith("cdn_retention_ring_entries{"))
+            check(gauge == sum(stats["ring_entries"].values()),
+                  f"{label}: cdn_retention_ring_entries {gauge} != the "
+                  f"rings' {sum(stats['ring_entries'].values())}")
+            pstats = plane_stats(plane)
+        finally:
+            await run.shutdown()
+    finally:
+        Memory.set_duplex_window(prev_window)
+        for suffix in ("", "-wal", "-shm"):
+            if os.path.exists(db + suffix):
+                os.remove(db + suffix)
+    want1 = check_in_process_deliveries(label + " burst 1", got1, bytes1,
+                                        [burst1])
+    want2 = check_in_process_deliveries(label + " burst 2", got2, bytes2,
+                                        [b2])
+    live = len(want1) + len(want2)
+    check(not plane.disabled and plane.delivery_impl == "dense",
+          f"{label}: the plane disabled itself or switched impl")
+    check(plane.messages_routed == live,
+          f"{label}: the plane routed {plane.messages_routed} of {live} "
+          "live deliveries; the rest took the host path")
+    check(launches > 0, f"{label}: never launched delivery_matrix_cuda")
+    check(pstats["native_egress_steps"] == pstats["busy_steps"] > 0,
+          f"{label}: {pstats['native_egress_steps']} of "
+          f"{pstats['busy_steps']} busy steps egressed natively")
+    return dict(
+        run="retained topics", users=U, late_users=late, lvc_users=lvc,
+        retained_topics=R, retain_count=cap,
+        retained_per_ring_max=max(per_ring), retained_total=sum(per_ring),
+        any_ring_evicts=evicts, ring_entries=sum(stats["ring_entries"].values()),
+        evicted_entries=stats["evicted_entries"],
+        replayed_frames=stats["replayed_frames"],
+        replay_s=replay_s, deliveries=live, matches_oracle=True,
+        delivered_msgs_per_s_burst1=len(want1) / busy1,
+        delivered_msgs_per_s_burst2=len(want2) / busy2,
+        delivery_matrix_cuda=launches, run_s=time.perf_counter() - t_run,
+        **pstats)
+
+
+async def admission_run(device, shape: dict = ADMISSION) -> dict:
+    """Phase 15 (b): a broker with a dense plane of 1024 user slots and
+    admission budgets set. A real client over budget is refused before
+    authentication; one user's 100 subscribe mutations meet the bucket;
+    a broadcast on a shed topic reaches no one while the plane launches;
+    ``/readyz`` reads the shed, then recovers."""
+    from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
+    from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.broker.tasks import listeners
+    from pushcdn_tpu_torch.broker.tasks.heartbeat import heartbeat_once
+    from pushcdn_tpu_torch.broker.test_harness import TestRun
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.marshal import Marshal, MarshalConfig
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.proto import metrics
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.def_ import testing_run_def
+    from pushcdn_tpu_torch.proto.error import Error, ErrorKind
+    from pushcdn_tpu_torch.proto.message import (
+        AuthenticateResponse,
+        Broadcast,
+        Subscribe,
+        deserialize,
+        serialize,
+    )
+    from pushcdn_tpu_torch.proto.topic import TopicSpace
+    from pushcdn_tpu_torch.proto.transport.memory import (
+        Memory,
+        gen_testing_connection_pair,
+    )
+
+    label = "durable admission"
+    U = shape["users"]
+    rng = np.random.default_rng(1500)
+    # the injected users keep to topics 0..99; the storm asks for 100..199
+    topics = [sorted({int(t) for t in rng.integers(0, 100, 3)})
+              for _ in range(U)]
+    storm = [100 + i for i in range(shape["mutations"])]
+    plane_cfg = DevicePlaneConfig(
+        num_user_slots=shape["plane_slots"], ring_slots=shape["ring_slots"],
+        frame_bytes=shape["frame_bytes"], extra_lanes=(shape["extra_lane"],),
+        topic_words=shape["topic_words"], bypass_max_items=0,
+        delivery_impl="dense")
+    db = os.path.join(HERE, ".build", f"smoke-admission-{os.getpid()}.sqlite")
+    (mport,) = free_ports(1)
+    run_def = testing_run_def(topics=TopicSpace.range(shape["topics"]))
+    marshal = None
+    t_run = time.perf_counter()
+    try:
+        with EnvKnobs(PUSHCDN_MAX_CONNS_USER=shape["max_user_conns"],
+                      PUSHCDN_SUBSCRIBE_RATE=shape["subscribe_rate"],
+                      PUSHCDN_SUBSCRIBE_BURST=shape["subscribe_burst"],
+                      PUSHCDN_SHED_READY_S=shape["shed_ready_s"]):
+            broker = await Broker.new(BrokerConfig(
+                run_def=run_def,
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=1500),
+                discovery_endpoint=db,
+                public_advertise_endpoint="smoke-admission-pub",
+                public_bind_endpoint="smoke-admission-pub",
+                private_advertise_endpoint="smoke-admission-priv",
+                private_bind_endpoint="smoke-admission-priv",
+                metrics_bind_endpoint=f"127.0.0.1:{mport}",
+                heartbeat_interval_s=3600, sync_interval_s=3600,
+                whitelist_interval_s=3600, device_plane=plane_cfg,
+                device=device))
+        await broker.start()
+        await heartbeat_once(broker)
+        marshal = await Marshal.new(MarshalConfig(
+            run_def=run_def, discovery_endpoint=db,
+            bind_endpoint="smoke-admission-marshal"))
+        await marshal.start()
+        run = TestRun(broker=broker)
+        try:
+            await run.inject_users(topics)
+            adm, plane = broker.admission, broker.device_plane
+            # the 65th user: a raw connection gets the typed refusal...
+            local, remote = await gen_testing_connection_pair(broker.limiter)
+
+            class Unfinalized:
+                async def finalize(self, limiter):
+                    return local
+            await listeners.handle_user_connection(broker, Unfinalized())
+            raw = await asyncio.wait_for(remote.recv_raw(), 5)
+            refusal = deserialize(raw.data)
+            raw.release()
+            remote.close()
+            check(isinstance(refusal, AuthenticateResponse)
+                  and refusal.permit == 0
+                  and refusal.context.startswith("shed:"),
+                  f"{label}: the 65th user got {refusal!r}")
+            # ...and a real client through the marshal raises it typed
+            client = Client(ClientConfig(
+                marshal_endpoint="smoke-admission-marshal",
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=1565),
+                protocol=Memory))
+            try:
+                await asyncio.wait_for(client._connect_once(), 10)
+                client_error = None
+            except Error as e:
+                client_error = e
+            finally:
+                client.close()
+            check(client_error is not None
+                  and client_error.kind == ErrorKind.SHED
+                  and "shed:" in str(client_error)
+                  and client_error.retry_after_s == shape["shed_ready_s"],
+                  f"{label}: the 65th client raised {client_error!r}")
+            check(broker.connections.num_users == U,
+                  f"{label}: {broker.connections.num_users} users after "
+                  "the refusals")
+            ready0 = await asyncio.to_thread(http_get, mport, "/readyz")
+            # one user's subscribe storm against the bucket
+            shed0 = metrics.ROUTE_SHED_SUBSCRIBE.value
+            storm_user = run.user(0).remote
+            await storm_user.send_raw_many(
+                [serialize(Subscribe([t])) for t in storm], flush=True)
+            notices = []
+            async with asyncio.timeout(30):
+                while True:
+                    applied = set(broker.connections.user_topics
+                                  .get_values_of_key(b"user-0")) & set(storm)
+                    shed = metrics.ROUTE_SHED_SUBSCRIBE.value - shed0
+                    if len(applied) + shed >= len(storm):
+                        break
+                    await asyncio.sleep(0.01)
+            notices = [deserialize(f) for f in await recv_frames(
+                storm_user, int(shed), f"{label}: shed notices")]
+            check(all(isinstance(m, AuthenticateResponse) and m.permit == 0
+                      and "shed" in m.context for m in notices),
+                  f"{label}: a shed notice was not typed")
+            check(len(applied) + shed == len(storm)
+                  and shed >= len(storm) - shape["subscribe_burst"] - 5,
+                  f"{label}: {len(applied)} applied and {shed} shed of "
+                  f"{len(storm)}")
+            ready1 = await asyncio.to_thread(http_get, mport, "/readyz")
+            # a broadcast on a shed topic reaches no one; the plane still
+            # steps and launches
+            shed_topic = max(set(storm) - applied)
+            kept_topic = min(applied)
+            dk.LAUNCHES = 0
+            routed0 = plane.messages_routed
+            await run.user(1).remote.send_message(
+                Broadcast([shed_topic], b"nobody"), flush=True)
+            await run.user(1).remote.send_message(
+                Broadcast([kept_topic], b"storm user"), flush=True)
+            (frame,) = await recv_frames(storm_user, 1,
+                                         f"{label}: the kept topic")
+            check(deserialize(frame).message == b"storm user",
+                  f"{label}: the storm user got the shed topic's broadcast")
+            for u in run.connected_users[1:]:
+                try:
+                    raws = await asyncio.wait_for(u.remote.recv_raw_many(),
+                                                  0.01)
+                except TimeoutError:
+                    raws = []
+                check(not raws, f"{label}: user {u.public_key} got a "
+                      "broadcast nobody asked for")
+            launches = dk.LAUNCHES
+            routed = plane.messages_routed - routed0
+            check(launches > 0, f"{label}: the plane never launched")
+            check(routed == 1, f"{label}: the plane routed {routed} "
+                  "deliveries of the two broadcasts (1 expected)")
+            await asyncio.sleep(shape["shed_ready_s"] + 0.2)
+            ready2 = await asyncio.to_thread(http_get, mport, "/readyz")
+        finally:
+            await run.shutdown()
+    finally:
+        if marshal is not None:
+            await marshal.stop()
+        for suffix in ("", "-wal", "-shm"):
+            if os.path.exists(db + suffix):
+                os.remove(db + suffix)
+
+    def admission_ok(reply):
+        check(reply is not None, f"{label}: /readyz did not answer")
+        return json.loads(reply[1])["checks"]["admission"]["ok"]
+    readiness = [admission_ok(r) for r in (ready0, ready1, ready2)]
+    check(readiness == [False, False, True],
+          f"{label}: /readyz admission read {readiness} (the refusals, the "
+          "storm, then 2 s later)")
+    return dict(
+        run="admission", users=U, plane_slots=shape["plane_slots"],
+        max_user_conns=shape["max_user_conns"],
+        subscribe_rate=shape["subscribe_rate"],
+        subscribe_burst=shape["subscribe_burst"],
+        refusal_context=refusal.context, client_error=client_error.kind.name,
+        mutations=len(storm), applied=len(applied), shed=int(shed),
+        notices=len(notices), readyz_admission=readiness,
+        shed_counts=adm.summary()["shed_counts"],
+        delivery_matrix_cuda=launches, run_s=time.perf_counter() - t_run)
+
+
+async def rehome_run(shape: dict = REHOME, seed: int = 150,
+                     device=None) -> dict:
+    """Phase 15 (c): a marshal and broker A (``--device-plane``) serve
+    256 TCP+TLS clients; broker B starts; A is signaled and re-homes every
+    client to B with a pre-issued permit; a uniform burst then reaches
+    every client through B's plane; ``GET /drain`` on B finds no target.
+    Every check, then its numbers. The brokers run on the binary's
+    default device (CUDA) unless ``device`` names another."""
+    import signal
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import TcpTls
+
+    label = "durable re-homing"
+    U, P = shape["users"], shape["publishers"]
+    pairs = [DEFAULT_SCHEME.generate_keypair(seed=seed * 1_000_000 + u)
+             for u in range(U)]
+    sc = BrokerScenario("uniform", seed, shape,
+                        keys=[k.public_key for k in pairs])
+    burst = sc.burst()
+    tag = f"rehome-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    a_pub, a_priv, b_pub, b_priv, marshal, a_metrics, b_metrics = \
+        free_ports(7)
+    common = ("--discovery-endpoint", db, "--user-transport", "tcp+tls",
+              "--broker-transport", "tcp", "--device-plane",
+              "--heartbeat-interval", "0.5",
+              *(["--device", str(device)] if device else []))
+    env = {"PUSHCDN_DELIVERY_IMPL": "dense", "PUSHCDN_DRAIN_GRACE_S": "2"}
+
+    def endpoints(pub, priv, metrics_port):
+        return ("--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                "--metrics-bind-endpoint", f"127.0.0.1:{metrics_port}")
+    kids = Children(tag)
+    clients, drains = [], []
+    t_run = time.perf_counter()
+    try:
+        kids.spawn("a", *common, *endpoints(a_pub, a_priv, a_metrics),
+                   env=env, binary="broker")
+        kids.spawn("marshal", "--discovery-endpoint", db,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--user-transport", "tcp+tls")
+        await kids.wait_for_line("a", "broker serving", label, timeout=120)
+        clients = [Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}", keypair=kp,
+            protocol=TcpTls, subscribed_topics=set(topics)))
+            for kp, topics in zip(pairs, sc.topics)]
+        gate = asyncio.Semaphore(shape["auth_concurrency"])
+
+        async def authenticate(client):
+            async with gate:
+                await client.ensure_initialized()
+        async with asyncio.timeout(120):
+            await asyncio.gather(*(authenticate(c) for c in clients))
+        # from here on a marshal round trip is counted per client
+        dials = [0] * U
+        for uid, c in enumerate(clients):
+            def counted(orig=c._connect_once, uid=uid):
+                dials[uid] += 1
+                return orig()
+            c._connect_once = counted
+
+        got = [[] for _ in range(U)]
+        got_bytes = np.zeros(U, np.int64)
+        seen = [0, 0]   # frames, perf_counter ns of the last
+
+        async def drain(uid, client):
+            # a client acts on Migrate while it receives
+            while True:
+                messages = await client.receive_messages()
+                now = time.perf_counter_ns()
+                for m in messages:
+                    pub_, seq, _ = TAIL.unpack_from(
+                        m.message, len(m.message) - TAIL.size)
+                    got[uid].append((pub_ * 2 << 32) | seq)
+                    got_bytes[uid] += len(m.message)
+                    seen[0] += 1
+                seen[1] = now
+
+        drains = [asyncio.create_task(drain(uid, c))
+                  for uid, c in enumerate(clients)]
+        kids.spawn("b", *common, *endpoints(b_pub, b_priv, b_metrics),
+                   env=env, binary="broker")
+        b_serving = await kids.wait_for_line("b", "broker serving", label,
+                                             timeout=120)
+        await asyncio.sleep(1.5)   # B's heartbeats register it
+        t0 = time.perf_counter()
+        kids.procs["a"].send_signal(signal.SIGTERM)
+
+        async def b_users():
+            reply = await asyncio.to_thread(http_get, b_metrics,
+                                            "/debug/topology")
+            return json.loads(reply[1])["num_users"] \
+                if reply and reply[0] == 200 else -1
+        try:
+            async with asyncio.timeout(60):
+                while await b_users() < U:
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {await b_users()} of {U} users "
+                               f"reached B:\n{log_tail(kids.logs['a'])}") \
+                from None
+        rehome_s = time.perf_counter() - t0
+        a_rc = await asyncio.to_thread(kids.procs["a"].wait, 60)
+        del kids.procs["a"]   # it exited; B and the marshal serve on
+        a_log = log_tail(kids.logs["a"], 1 << 20)
+        check(a_rc == 0, f"{label}: broker A exited {a_rc}:\n{a_log[-4000:]}")
+        summaries = [line.split("drain re-home: ", 1)[1]
+                     for line in a_log.splitlines() if "drain re-home: " in line]
+        import ast
+        summary = ast.literal_eval(summaries[-1]) if summaries else None
+        check(summary is not None and summary["users"] == U
+              and summary["signaled"] == U and summary["orphaned"] == 0,
+              f"{label}: A's drain re-home read {summary}")
+        check(all(len(c.rehome_ms) == 1 for c in clients),
+              f"{label}: {sum(len(c.rehome_ms) == 1 for c in clients)} of "
+              f"{U} clients completed one migration")
+        check(not any(dials), f"{label}: {sum(map(bool, dials))} clients "
+              "went back to the marshal instead of using their permit")
+        # the burst through B
+        async def one(pub_):
+            client = clients[pub_]
+            for direct, target, head in burst.messages[pub_]:
+                body = head + struct.pack("<q", time.perf_counter_ns())
+                await client.send_message(
+                    Direct(target, body) if direct
+                    else Broadcast(target, body))
+        t0 = time.perf_counter_ns()
+        await asyncio.gather(*(one(p) for p in range(P)))
+        try:
+            async with asyncio.timeout(120):
+                while seen[0] < len(burst.codes):
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.005)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {seen[0]} of {len(burst.codes)} "
+                               "frames arrived through B") from None
+        busy_s = (seen[1] - t0) / 1e9
+        await asyncio.sleep(0.3)
+        scraped = await asyncio.to_thread(http_get, b_metrics, "/metrics")
+        check(scraped is not None and scraped[0] == 200,
+              f"{label}: B's /metrics did not answer")
+        routed = metric(scraped[1], "cdn_device_messages_routed")
+        drained = await asyncio.to_thread(http_get, b_metrics, "/drain")
+        check(drained is not None and drained[0] == 200,
+              f"{label}: B's /drain answered {drained}")
+        drained = json.loads(drained[1])
+        check(drained["no_target"] and drained["users"] == U,
+              f"{label}: B's /drain read {drained}")
+        await asyncio.sleep(0.5)
+        check(await b_users() == U, f"{label}: B lost users on a /drain "
+              "with no target")
+        for t in drains:
+            t.cancel()
+        await asyncio.gather(*drains, return_exceptions=True)
+        for c in clients:
+            c.close()
+        kids.terminate(label)
+        b_exit = log_fields(kids.logs["b"], "device plane exit")
+    finally:
+        for t in drains:
+            t.cancel()
+        for c in clients:
+            c.close()
+        kids.kill()
+        for suffix in ("", "-wal", "-shm"):
+            if os.path.exists(db + suffix):
+                os.remove(db + suffix)
+
+    lane_bit = np.int64(1) << 32
+    want = np.sort(burst.codes & ~lane_bit)
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries through B differ from the "
+          f"oracle's {len(want)}")
+    check(np.array_equal(got_bytes, burst.payload_bytes),
+          f"{label}: received payload bytes differ from the oracle's")
+    check(routed > 0, f"{label}: B's /metrics shows "
+          "cdn_device_messages_routed 0")
+    traffic = b_exit["launches"]["delivery_matrix_cuda"] \
+        - b_serving["launches"]["delivery_matrix_cuda"]
+    check(traffic > 0, f"{label}: B never launched delivery_matrix_cuda "
+          "after its warm-up")
+    return dict(
+        run="re-homing", clients=U, transport="tcp+tls", publishers=P,
+        frames=shape["frames"], drain_rehome=summary, rehome_s=rehome_s,
+        rehome_ms_median=float(np.median([c.rehome_ms[0] for c in clients])),
+        deliveries=len(want), matches_oracle=True,
+        delivered_msgs_per_s=len(want) / busy_s, messages_routed=routed,
+        b_drain=drained, delivery_matrix_cuda=traffic,
+        b_exit={k: b_exit[k] for k in ("steps", "messages_routed",
+                                        "launches", "busy_steps",
+                                        "native_egress_steps")},
+        run_s=time.perf_counter() - t_run)
+
+
+def phase_durable(device, broker_rows: dict) -> int:
+    """Phase 15: (a) retained topics through the plane, beside phase 8's
+    dense uniform run on the same first burst; (b) admission under the
+    plane; (c) re-homing through the binaries. One ``durable`` line per
+    run; returns the dense kernel's launches over the three runs'
+    traffic."""
+    row = asyncio.run(durable_run(device))
+    dense = broker_rows.get(("dense", "uniform"))
+    if dense is not None:
+        row["phase8_dense_uniform_msgs_per_s"] = dense["delivered_msgs_per_s"]
+    emit("durable", **row)
+    launches = row["delivery_matrix_cuda"]
+    row = asyncio.run(admission_run(device))
+    emit("durable", **row)
+    launches += row["delivery_matrix_cuda"]
+    row = asyncio.run(rehome_run())
+    emit("durable", **row)
+    return launches + row["delivery_matrix_cuda"]
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3914,6 +4687,10 @@ def main() -> int:
     # beside phase 8's and phase 9's plane-less brokers
     phase_shards(broker_rows, cluster_rows)
     lap(14)
+    # 15. durable topics, admission and re-homing under the dense plane;
+    # the three runs' launches join the kernel line's
+    launches["dense"] += phase_durable(device, broker_rows)
+    lap(15)
     emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
          total=sum(laps.values()))
 

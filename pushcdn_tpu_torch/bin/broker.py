@@ -39,8 +39,20 @@ the workers through ``SO_REUSEPORT``, or through the supervisor's
 fd-handoff acceptor where the platform lacks it (``tcp`` users only).
 It is a host data plane feature: with ``--device-plane`` or
 ``--mesh-shards`` the binary refuses to start, and no process of a
-sharded broker imports torch. Not copied yet (ROADMAP.md, Queue A): the
-io_uring and pump selectors, and the re-homing of users on a drain.
+sharded broker imports torch.
+
+The drain signals are installed before the broker starts, so a signal
+during the plane's warm-up drains too. A drain leaves discovery and sends
+every connected user a ``Migrate`` to the least-loaded live peer, with a
+permit issued for it (``broker.rehome``; a ``--shards`` worker re-homes
+its own shard's users when the supervisor forwards the signal), and logs
+one ``drain re-home`` line. Admission control and the durable topics'
+retention rings follow their ``PUSHCDN_MAX_CONNS_*``,
+``PUSHCDN_SUBSCRIBE_*``, ``PUSHCDN_SHED_READY_S`` and
+``PUSHCDN_RETAIN_*`` knobs. This package has no io_uring engine: an
+explicit ``PUSHCDN_IO_IMPL=uring`` (or ``PUSHCDN_IO_URING=1``) is refused
+at start, ``auto`` warns once and runs asyncio. Not copied yet
+(ROADMAP.md, Queue A): the io_uring and pump selectors.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ import statistics
 import sys
 
 from pushcdn_tpu_torch.bin.common import (
+    check_io_impl,
     drain_grace_s,
     init_logging,
     install_drain_signals,
@@ -417,26 +430,41 @@ async def amain(args: argparse.Namespace) -> None:
         runtime.attach()
     if args.mesh_shards is not None:
         attach_mesh_group(args, broker)
-    # the plane warms up here; on the card a kernel that does not build
-    # or launch raises, and the process exits non-zero
-    await broker.start()
     plane = broker.device_plane
-    log_plane("broker serving", plane)
-    # Graceful drain: SIGINT/SIGTERM flips /readyz to 503 FIRST,
-    # keeps serving in-flight traffic for PUSHCDN_DRAIN_GRACE_S, then
-    # stops — so a load balancer stops routing before the listeners close.
+    # Graceful drain: SIGINT/SIGTERM flips /readyz to 503 FIRST, re-homes
+    # every user to a live peer, keeps serving in-flight traffic for
+    # PUSHCDN_DRAIN_GRACE_S, then stops — so a load balancer stops routing
+    # before the listeners close. The signals go in BEFORE the broker
+    # starts: on the card start() warms the plane up and builds its
+    # kernels, and a signal in that window must drain, not kill.
     drain = asyncio.Event()
-    if not install_drain_signals(drain):
+    installed = install_drain_signals(drain)
+
+    async def serve() -> None:
+        # the plane warms up here; on the card a kernel that does not
+        # build or launch raises, and the process exits non-zero
+        await broker.start()
+        log_plane("broker serving", plane)
         await broker.wait_until_failure()
+
+    if not installed:
+        await serve()
         return
-    run_task = asyncio.create_task(broker.wait_until_failure(),
-                                   name="broker-run")
+    run_task = asyncio.create_task(serve(), name="broker-run")
     drain_task = asyncio.create_task(drain.wait(), name="drain-wait")
     try:
         await asyncio.wait({run_task, drain_task},
                            return_when=asyncio.FIRST_COMPLETED)
         if drain.is_set():
             broker.begin_drain("signal")
+            # elastic drain: actively re-home every connected user to the
+            # surviving brokers before the grace sleep — the UserSync
+            # evictions land while we're still serving
+            try:
+                from pushcdn_tpu_torch.broker import rehome as rehome_mod
+                await rehome_mod.rehome_users(broker)
+            except Exception as exc:
+                logger.warning("drain re-home failed: %r", exc)
             await asyncio.sleep(drain_grace_s())
             run_task.cancel()
             await asyncio.gather(run_task, return_exceptions=True)
@@ -451,6 +479,7 @@ async def amain(args: argparse.Namespace) -> None:
 def main() -> None:
     args = build_parser().parse_args()
     init_logging(args.verbose)
+    check_io_impl()
     tune_gc()
     try:
         asyncio.run(amain(args))

@@ -6,7 +6,8 @@ A copy of ``pushcdn_tpu.bin.common`` cut to what the port has: the
 transports are ``memory``, ``tcp`` and ``tcp+tls`` (no QUIC), the scheme is
 ``ed25519`` (no BLS), discovery is the embedded SQLite file (no Redis), and
 the io_uring and fused-pump selectors are gone with their engines
-(ROADMAP.md, Queue A).
+(ROADMAP.md, Queue A). ``check_io_impl`` answers the io_uring knobs the
+reference reads, so none of them is ignored silently.
 """
 
 from __future__ import annotations
@@ -69,6 +70,40 @@ def init_logging(verbosity: int = 0) -> None:
         handler.setFormatter(logging.Formatter(
             "%(asctime)s %(levelname)-5s %(name)s: %(message)s"))
     logging.basicConfig(level=level, handlers=[handler], force=True)
+
+
+IO_IMPLS = ("auto", "uring", "asyncio")
+_IO_LOG = logging.getLogger("pushcdn.io")
+
+
+def configured_io_impl() -> str:
+    """The requested io impl, read as the reference reads it:
+    ``PUSHCDN_IO_IMPL`` (auto|uring|asyncio), else the legacy
+    ``PUSHCDN_IO_URING`` (1/true/yes/uring, or auto), else ``asyncio``."""
+    v = os.environ.get("PUSHCDN_IO_IMPL", "").strip().lower()
+    if v in IO_IMPLS:
+        return v
+    u = os.environ.get("PUSHCDN_IO_URING", "").strip().lower()
+    if u in ("1", "true", "yes", "uring"):
+        return "uring"
+    if u == "auto":
+        return "auto"
+    return "asyncio"
+
+
+def check_io_impl() -> None:
+    """Answer the io knobs at a binary's start. This package has no
+    io_uring engine (ROADMAP.md, Queue A item 6): an explicit ``uring`` is
+    refused, as the reference refuses it where the kernel has no io_uring;
+    ``auto`` demotes to asyncio with one warning; ``asyncio`` is silent."""
+    impl = configured_io_impl()
+    if impl == "uring":
+        raise SystemExit(
+            "PUSHCDN_IO_IMPL=uring: this package has no io_uring engine "
+            "yet (ROADMAP.md, Queue A item 6); use asyncio or auto")
+    if impl == "auto":
+        _IO_LOG.warning("io_uring engine not in this package (ROADMAP.md, "
+                        "Queue A item 6): io impl auto runs asyncio")
 
 
 def drain_grace_s() -> float:

@@ -7,6 +7,7 @@ import argparse
 import asyncio
 
 from pushcdn_tpu_torch.bin.common import (
+    check_io_impl,
     drain_grace_s,
     init_logging,
     install_drain_signals,
@@ -62,6 +63,7 @@ async def amain(args: argparse.Namespace) -> None:
 def main() -> None:
     args = build_parser().parse_args()
     init_logging(args.verbose)
+    check_io_impl()
     tune_gc()
     try:
         asyncio.run(amain(args))

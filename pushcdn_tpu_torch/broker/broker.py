@@ -6,10 +6,12 @@ peer brokers), optional metrics endpoint; ``start`` spawns the five
 long-lived tasks (heartbeat, sync, whitelist, user listener, broker
 listener) and the process dies if any of them exits (lib.rs:302-318).
 
-A copy of ``pushcdn_tpu.broker.broker`` without admission control, the
-retention rings of the durable topics and the operator drain
-(re-homing): ``admission`` stays None, ``durable`` binds topic names and
-serves wildcard subscribes only, and ``GET /drain`` is not registered.
+A copy of ``pushcdn_tpu.broker.broker``. Every broker builds admission
+control (``broker.admission``: connection budgets and subscribe-rate
+shedding, off unless its knobs are set), the durable topics
+(``broker.durable``: retention rings, replay subscribe and the topic
+namespace) and, with a metrics endpoint, the operator drain ``GET
+/drain`` that re-homes every user (``broker.rehome``).
 A broker may be one of N worker shards of one identity: the worker sets
 ``shard_runtime`` (``broker.sharding.runtime_from_spec``, or
 ``attach_inprocess_shards`` on one loop), binds the user listener with
@@ -33,6 +35,7 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Optional
 
 from pushcdn_tpu_torch.broker import metrics as broker_metrics
+from pushcdn_tpu_torch.broker.admission import AdmissionControl
 from pushcdn_tpu_torch.broker.connections import Connections
 from pushcdn_tpu_torch.broker.retention import DurableTopics
 from pushcdn_tpu_torch.broker.tasks import heartbeat as heartbeat_task
@@ -135,7 +138,7 @@ class Broker:
         self.certificate: Optional[Certificate] = None
         self.user_listener = None
         self.broker_listener = None
-        self.admission = None  # admission control: not copied
+        self.admission = None  # AdmissionControl, set in new()
         self._tasks: list[asyncio.Task] = []
         self._stopped = asyncio.Event()
         # set by the device plane when overflow traffic needs host links
@@ -177,8 +180,12 @@ class Broker:
 
         self.limiter = Limiter(global_pool_bytes=c.global_memory_pool_size)
         self.connections = Connections(str(self.identity))
-        # durable topics: the topic namespace and wildcard subscribe
-        # (retention rings not copied)
+        # admission control: connection budgets + subscribe-rate
+        # shedding; env-configured, disabled by default
+        self.admission = AdmissionControl(self)
+        # durable topics: retention rings + replay subscribe + wildcard
+        # namespace; env-configured, retention disabled by default
+        # (wildcard SubscribeFrom works either way)
         self.durable = DurableTopics.from_env(self)
 
         # The observability endpoint comes up BEFORE the listeners bind:
@@ -264,6 +271,7 @@ class Broker:
                                          self._topology_route)
         metrics_mod.register_debug_route("/debug/ledger",
                                          ledger_mod.ledger_route)
+        metrics_mod.register_debug_route("/drain", self._drain_route)
 
     def unregister_observability(self) -> None:
         for name in ("listeners", "discovery", "mesh", "admission",
@@ -271,6 +279,7 @@ class Broker:
             health_mod.unregister(name)
         metrics_mod.unregister_debug_route("/debug/topology")
         metrics_mod.unregister_debug_route("/debug/ledger")
+        metrics_mod.unregister_debug_route("/drain")
 
     def _check_listeners(self):
         if not self.listeners_bound:
@@ -335,6 +344,19 @@ class Broker:
         routing here while in-flight traffic still drains."""
         self.draining = True
         health_mod.set_draining(reason)
+
+    async def _drain_route(self, params: dict) -> dict:
+        """``GET /drain``: operator-triggered elastic drain, the same
+        sequence SIGTERM runs: flip /readyz, leave discovery, then actively
+        re-home every connected user to the live peers. Returns the re-home
+        summary so the operator sees migrated/orphaned counts without
+        tailing logs."""
+        from pushcdn_tpu_torch.broker import rehome as rehome_mod
+        already = self.draining
+        self.begin_drain("operator /drain")
+        summary = await rehome_mod.rehome_users(self)
+        summary["was_draining"] = already
+        return summary
 
     def _topology_route(self, params: dict) -> dict:
         return self.topology_snapshot()

@@ -31,7 +31,9 @@ Differences from the single-process :class:`MeshBrokerGroup`:
   shard's broker.
 - **pk -> slot rendezvous through discovery.** A direct needs its
   recipient's slot; across processes that mapping travels through the
-  discovery store's user-slot directory, re-published on a TTL. A
+  discovery store's user-slot directory, re-published on a TTL that
+  outlasts the collective watchdog (the JAX group's two seconds let a
+  peer busy with a burst drop out of the directory). A
   cross-process double connect resolves through the same directory: the
   newer claim wins and the older process kicks its session.
 
@@ -252,7 +254,14 @@ class MultiHostBrokerGroup(MeshBrokerGroup):
     # ---- the directory refresh (heartbeat-style) --------------------------
 
     async def _directory_loop(self) -> None:
-        ttl = max(4 * self.directory_refresh_s, 2.0)
+        # An entry must outlive the longest stall of a live peer's event
+        # loop (a burst's egress and deliveries hold it for seconds), and
+        # a stall past the collective watchdog fails the whole group: the
+        # peers' stop barrier times out. A shorter life dropped a busy
+        # peer's users from every mirror, and the directs staged to them
+        # meanwhile left the mesh for a host path with no broker links.
+        ttl = max(2.0, self.collective_timeout_s
+                  + 4 * self.directory_refresh_s)
         while True:
             try:
                 t0 = time.perf_counter()

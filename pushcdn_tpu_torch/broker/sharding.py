@@ -35,9 +35,10 @@ as versioned deltas (``Connections.shard_notifier`` emits, the hub relays,
 local mutation.
 
 The port's copy of ``pushcdn_tpu.broker.sharding``. Every process it
-starts is host-only and never imports torch. This package keeps no
-retention rings, so no sibling ever sends the durable-topic events; they
-are still kept out of the interest-delta counters as the reference does.
+starts is host-only and never imports torch. The durable-topic events
+(``durable_pub``/``durable_retain``/``durable_sub``) go to the owner
+shard's ``DurableTopics.apply_shard_event`` and stay out of the
+interest-delta counters, as in the reference.
 """
 
 from __future__ import annotations
@@ -277,7 +278,10 @@ class ShardRuntime:
         if kind in ("durable_pub", "durable_retain", "durable_sub"):
             # durable-topic data plane: owner-shard retention / replay
             # traffic — like relay, kept out of the interest-delta
-            # counters (no retention rings here, so none arrives)
+            # counters
+            durable = getattr(self.broker, "durable", None)
+            if durable is not None:
+                durable.apply_shard_event(event)
             return
         if kind not in ("user", "user_del", "usersync", "mesh_topics",
                         "mesh_broker_del"):

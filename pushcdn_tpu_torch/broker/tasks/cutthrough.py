@@ -830,8 +830,7 @@ class RouteState:
                 # route decision (scalar-twin parity with handlers.py);
                 # on_publish always returns True here — acquire() routes
                 # sharded durable brokers scalar, so this plane only sees
-                # the unsharded retain-and-route-normally case (and this
-                # package retains no topics yet)
+                # the unsharded retain-and-route-normally case
                 durable = broker.durable
                 if durable is None or durable.on_publish(
                         pruned, message, raw, to_users_only=not is_user):
@@ -1037,8 +1036,7 @@ class RouteState:
                     # broadcasts in the same synchronous region as the plan
                     # (before the first egress await), so a SubscribeFrom
                     # landing mid-send sees exactly the planned frames in
-                    # its replay snapshot — no gap, no dup (this package
-                    # retains no topics yet, so the guard never passes)
+                    # its replay snapshot — no gap, no dup
                     durable = self.broker.durable
                     if durable is not None and durable.topics:
                         durable.retain_from_chunk(buf, offs, lens, pos,

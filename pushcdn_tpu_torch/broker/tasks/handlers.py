@@ -669,9 +669,9 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
                         broker.connections.unsubscribe_user_from(public_key,
                                                                  pruned)
                     elif isinstance(message, SubscribeFrom):
-                        # a pattern subscribes the bound names it covers
-                        # and keeps watching; an explicit topic is a plain
-                        # subscribe (no retention rings: nothing to replay)
+                        # durable replay subscribe: registration + ring
+                        # snapshot + replay enqueue in one synchronous
+                        # block (the handover invariant)
                         adm = broker.admission
                         if adm is not None and \
                                 not adm.allow_subscribe(connection):

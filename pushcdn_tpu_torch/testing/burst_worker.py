@@ -96,6 +96,15 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
                        time.perf_counter()))
         return out
     group.step_fn = counted
+    # when each directory refresh read the store: the longest gap while
+    # the bursts ran is how long a peer's entries must live
+    reads = []
+    get_slots = group.discovery.get_user_slots
+
+    async def timed_get_slots():
+        reads.append(time.perf_counter())
+        return await get_slots()
+    group.discovery.get_user_slots = timed_get_slots
 
     topics_of = plan["topics"][plan["first"]]
     run_def = testing_run_def(topics=TopicSpace.range(plan["num_topics"]))
@@ -161,6 +170,7 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
     await barrier(out_dir, "ready", rank, world)
 
     rows = []
+    reads0 = len(reads)
     recent0 = len(group.recent_steps)
     exchange0 = len(group.recent_exchange)
     barrier0 = len(group.recent_barrier)
@@ -186,12 +196,21 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
                 stamp = struct.pack("<q", time.perf_counter_ns())
                 await remotes[pub].send_raw_many(
                     [f[:-8] + stamp for f in frames])
-        async with asyncio.timeout(300):
-            while seen[0] < want:
-                await asyncio.sleep(0.002)
+        try:
+            async with asyncio.timeout(300):
+                while seen[0] < want:
+                    await asyncio.sleep(0.002)
+        except TimeoutError:
+            raise TimeoutError(
+                f"burst {i}: {want - seen[0]} deliveries to this process's "
+                f"users missing after 300 s; the group staged "
+                f"{group.overflows} frames to the host path, its directory "
+                f"mirror holds {len(group._remote_slots)} of {n_remote} "
+                f"remote users, disabled={group.disabled}") from None
         rows.append(dict(start_ns=t0, last_ns=last_ns[0],
                          latency_from=lat0, latency_to=len(latency_ns)))
         await barrier(out_dir, f"burst{i}-done", rank, world)
+    busy_reads = np.diff(reads[reads0:])
     await asyncio.sleep(0.2)   # a duplicate or a stray frame lands here
     busy = dict(
         steps=len(counts) - counts0,
@@ -235,6 +254,8 @@ async def serve(plan: dict, out_dir: str, rank: int, world: int, mesh) -> dict:
                 latency_ns=np.asarray(latency_ns, np.int64), bursts=rows,
                 busy=busy, idle=idle, host_links=host_links,
                 disabled=disabled, warm_launches=warm_launches,
+                overflows=group.overflows,
+                directory_max_gap_s=float(busy_reads.max(initial=0.0)),
                 transport=exchange_transport(mesh),
                 batch_window_s=group.config.batch_window_s)
 

@@ -476,3 +476,252 @@ def test_sharded_broker_binary_refusals(tmp_path, args, env, needle):
     assert p.returncode not in (0, None), out[-2000:]
     assert needle in out, out[-2000:]
     assert "shard worker" not in out and "broker serving" not in out
+
+
+# ---------------------------------------------------------------------------
+# the drain: signals before start, re-homing, GET /drain, the io knobs
+# ---------------------------------------------------------------------------
+
+_HELD_START = '''
+import asyncio
+import sys
+
+from pushcdn_tpu_torch.broker import device_plane
+
+
+async def _held_start(self):
+    print("plane start held", file=sys.stderr, flush=True)
+    await asyncio.sleep(120)
+
+
+device_plane.DevicePlane.start = _held_start
+'''
+
+
+async def _wait_for_line(path, needle: str, proc, timeout: float = 60):
+    async with asyncio.timeout(timeout):
+        while needle not in (path.read_text() if path.exists() else ""):
+            assert proc.poll() is None, path.read_text()[-3000:]
+            await asyncio.sleep(0.05)
+
+
+async def test_drain_signal_during_held_start_drains(tmp_path):
+    """A SIGTERM while the broker's start is held (its plane's warm-up,
+    the window where the card builds its kernels) drains: the broker logs
+    the re-home and its exit line and exits 0, instead of dying by the
+    signal."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_HELD_START)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pub, priv = _free_ports(2)
+    log = tmp_path / "broker.log"
+    proc = spawn_binary(
+        "broker", *_broker_args(str(tmp_path / "d.sqlite"), pub, priv,
+                                "--device-plane", "--device", "cpu"),
+        env_extra={"PYTHONPATH": repo + os.pathsep + str(hook)},
+        log_path=log)
+    try:
+        await _wait_for_line(log, "plane start held", proc)
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.to_thread(proc.wait, 30)
+        text = log.read_text()
+        assert rc == 0, text[-3000:]
+        assert "drain re-home: {'users': 0" in text, text[-3000:]
+        exit_line = _exit_fields(text, "device plane exit")
+        assert exit_line["steps"] == 0, text[-3000:]
+        assert "broker serving" not in text
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+@pytest.mark.parametrize("name,env,refused", [
+    ("broker", {"PUSHCDN_IO_IMPL": "uring"}, True),
+    ("marshal", {"PUSHCDN_IO_IMPL": "uring"}, True),
+    ("broker", {"PUSHCDN_IO_URING": "1"}, True),
+    ("marshal", {"PUSHCDN_IO_IMPL": "auto"}, False),
+    ("broker", {"PUSHCDN_IO_URING": "auto"}, False),
+    ("marshal", {"PUSHCDN_IO_IMPL": "asyncio"}, False),
+], ids=["uring-broker", "uring-marshal", "legacy-uring-broker",
+        "auto-marshal", "legacy-auto-broker", "asyncio-marshal"])
+async def test_io_knobs_are_answered(tmp_path, name, env, refused):
+    """This package has no io_uring engine: an explicit ``uring`` is
+    refused at start naming the roadmap item, ``auto`` warns once and
+    serves on asyncio, ``asyncio`` is silent."""
+    db = str(tmp_path / "d.sqlite")
+    if name == "broker":
+        pub, priv = _free_ports(2)
+        args = _broker_args(db, pub, priv)
+    else:
+        args = ["--discovery-endpoint", db, "--bind-endpoint",
+                f"127.0.0.1:{_free_ports(1)[0]}"]
+    log = tmp_path / f"{name}.log"
+    proc = spawn_binary(name, *args, env_extra=env, log_path=log)
+    try:
+        if refused:
+            rc = await asyncio.to_thread(proc.wait, 60)
+            text = log.read_text()
+            assert rc not in (0, None), text[-2000:]
+            assert "PUSHCDN_IO_IMPL=uring" in text
+            assert "Queue A item 6" in text
+            return
+        # serving, then a clean drain
+        await asyncio.sleep(1.5)
+        assert proc.poll() is None, log.read_text()[-2000:]
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.to_thread(proc.wait, 30)
+        text = log.read_text()
+        assert rc == 0, text[-2000:]
+        warned = text.count("io impl auto runs asyncio")
+        assert warned == (0 if "asyncio" in env.values() else 1), text
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def _drain_summaries(text: str) -> list:
+    import ast
+    return [ast.literal_eval(line.split("drain re-home: ", 1)[1])
+            for line in text.splitlines() if "drain re-home: " in line]
+
+
+async def _collect(client, box: list) -> None:
+    """Receive forever into ``box``: a client acts on ``Migrate`` while it
+    receives."""
+    try:
+        while True:
+            box.extend(await client.receive_messages())
+    except asyncio.CancelledError:
+        raise
+    except Exception:
+        return
+
+
+async def _rehome_run(tmp_path, shards: int) -> None:
+    """A marshal and broker A (``--shards`` as given) serve four clients;
+    broker B starts; A is signaled and re-homes every client to B, which
+    then delivers a broadcast to all of them, replays its retained topic,
+    and answers ``GET /drain`` with nowhere to send its users."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.message import Broadcast, Retained
+    from pushcdn_tpu_torch.proto.transport import Tcp
+
+    db = str(tmp_path / "cdn.sqlite")
+    a_pub, a_priv, b_pub, b_priv, marshal, b_metrics = _free_ports(6)
+    env = {"PUSHCDN_RETAIN_TOPICS": "0", "PUSHCDN_DRAIN_GRACE_S": "1",
+           "PUSHCDN_SHARD_ACCEPT": "handoff"}
+    common = ("--user-transport", "tcp", "--heartbeat-interval", "0.3")
+    logs = {n: tmp_path / f"{n}.log" for n in ("a", "b", "marshal")}
+    a_args = _broker_args(db, a_pub, a_priv, *common)
+    if shards > 1:
+        a_args += ["--shards", str(shards)]
+    procs = {
+        "marshal": spawn_binary(
+            "marshal", "--discovery-endpoint", db,
+            "--bind-endpoint", f"127.0.0.1:{marshal}",
+            "--user-transport", "tcp", log_path=logs["marshal"]),
+        "a": spawn_binary("broker", *a_args, env_extra=env,
+                          log_path=logs["a"]),
+    }
+    clients, boxes, tasks = [], [], []
+    try:
+        for seed in range(9300, 9304):
+            c = Client(ClientConfig(
+                marshal_endpoint=f"127.0.0.1:{marshal}",
+                keypair=DEFAULT_SCHEME.generate_keypair(seed=seed),
+                protocol=Tcp, subscribed_topics={0}))
+            async with asyncio.timeout(45):
+                await c.ensure_initialized()
+            clients.append(c)
+            boxes.append([])
+            tasks.append(asyncio.create_task(_collect(c, boxes[-1])))
+        procs["b"] = spawn_binary(
+            "broker", *_broker_args(
+                db, b_pub, b_priv, *common, "--metrics-bind-endpoint",
+                f"127.0.0.1:{b_metrics}"),
+            env_extra=env, log_path=logs["b"])
+        await _wait_for_line(logs["b"], "broker serving", procs["b"])
+        await asyncio.sleep(1.0)  # B's heartbeat registers it
+        procs["a"].send_signal(signal.SIGTERM)
+        rc = await asyncio.to_thread(procs["a"].wait, 40)
+        a_text = logs["a"].read_text()
+        assert rc == 0, a_text[-3000:]
+        summaries = _drain_summaries(a_text)
+        assert len(summaries) == shards, a_text[-3000:]
+        assert sum(s["users"] for s in summaries) == 4
+        assert sum(s["signaled"] for s in summaries) == 4
+        assert sum(s["orphaned"] for s in summaries) == 0
+        if shards > 1:
+            assert all(s["users"] > 0 for s in summaries), summaries
+
+        async def b_users():
+            status, body = await asyncio.to_thread(_get, b_metrics,
+                                                   "/debug/topology")
+            return json.loads(body)["num_users"] if status == 200 else -1
+        async with asyncio.timeout(20):
+            while await b_users() != 4:
+                await asyncio.sleep(0.1)
+        for i in range(3):
+            await clients[0].send_broadcast_message([0], b"on b %d" % i)
+        async with asyncio.timeout(20):
+            while not all(sum(isinstance(m, Broadcast) for m in box) >= 3
+                          for box in boxes):
+                await asyncio.sleep(0.05)
+        for box in boxes:
+            assert [bytes(m.message) for m in box
+                    if isinstance(m, Broadcast)] == [b"on b 0", b"on b 1",
+                                                     b"on b 2"]
+        # B retains topic 0: a replay subscribe gets the three back
+        await clients[1].subscribe_from(0, 0)
+        async with asyncio.timeout(20):
+            while sum(isinstance(m, Retained) for m in boxes[1]) < 3:
+                await asyncio.sleep(0.05)
+        assert [(m.seq, bytes(m.payload)) for m in boxes[1]
+                if isinstance(m, Retained)] == [
+            (1, b"on b 0"), (2, b"on b 1"), (3, b"on b 2")]
+        # B is the last broker: GET /drain finds no target, users stay
+        status, body = await asyncio.to_thread(_get, b_metrics, "/drain")
+        assert status == 200, body
+        drained = json.loads(body)
+        assert drained["no_target"] and drained["users"] == 4, drained
+        assert await b_users() == 4
+        status, _ = await asyncio.to_thread(_get, b_metrics, "/readyz")
+        assert status == 503
+        for t in tasks:
+            t.cancel()
+        for c in clients:
+            c.close()
+        for n in ("b", "marshal"):
+            procs[n].send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(procs[n].wait, 30)
+               for n in ("b", "marshal")}
+        assert rcs == {"b": 0, "marshal": 0}, \
+            {n: logs[n].read_text()[-2000:] for n in rcs}
+    finally:
+        for t in tasks:
+            t.cancel()
+        for c in clients:
+            c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+async def test_sigterm_rehomes_clients_to_the_other_broker(tmp_path):
+    """Two broker processes and a marshal: a SIGTERM to the one holding
+    every client re-homes them all to the other (``Migrate`` with a
+    pre-issued permit), which then delivers to them, replays its retained
+    topic (``PUSHCDN_RETAIN_TOPICS``) and answers ``GET /drain``."""
+    await _rehome_run(tmp_path, shards=1)
+
+
+async def test_sharded_broker_rehomes_the_users_of_every_worker(tmp_path):
+    """The same with broker A as ``--shards 2`` (the fd-handoff acceptor
+    deals the clients over both workers): the supervisor forwards the
+    signal and each worker re-homes its own users."""
+    await _rehome_run(tmp_path, shards=2)

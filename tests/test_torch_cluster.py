@@ -416,12 +416,12 @@ async def test_cluster_delivers_what_the_jax_cluster_delivers(scenario):
 
 @pytest.mark.parametrize("call", ["subscribe_from", "last_value",
                                   "subscribe_pattern"])
-async def test_replay_subscribes_need_the_durable_topics_not_yet_ported(call):
-    """``SubscribeFrom`` replays from the broker's durable topics, which
-    the port has not copied. Both brokers serve it as the JAX broker does
-    with retention off: an explicit topic is a plain subscribe that keeps
-    the user and delivers the topic's next broadcast, a pattern binds
-    nothing, and an unknown topic kicks as ``Subscribe`` does."""
+async def test_replay_subscribes_without_retained_topics_match_jax(call):
+    """With retention off (no ``PUSHCDN_RETAIN_TOPICS``) both brokers
+    serve ``SubscribeFrom`` alike: an explicit topic is a plain subscribe
+    that keeps the user and delivers the topic's next broadcast, a
+    pattern binds nothing, and an unknown topic kicks as ``Subscribe``
+    does. ``tests/test_torch_retention.py`` holds the replay itself."""
     args = {"subscribe_from": (0, 0), "last_value": (0,),
             "subscribe_pattern": ("consensus.*",)}[call]
     out = {}
@@ -548,13 +548,3 @@ async def _bound_names_run(p) -> dict:
             return out
         finally:
             await cluster.stop()
-
-
-async def test_retained_topics_need_the_rings_not_yet_ported(monkeypatch):
-    """The port's durable topics hold the name binding and wildcard part
-    only: a broker asked to retain topics refuses to start rather than
-    serve replay subscribes with nothing retained."""
-    monkeypatch.setenv("PUSHCDN_RETAIN_TOPICS", "0")
-    p = _pkg("port")
-    with pytest.raises(p.error.Error, match="retention rings"):
-        await p.cluster(num_brokers=1).start()

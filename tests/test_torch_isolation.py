@@ -226,7 +226,10 @@ print(line)
     "pushcdn_tpu_torch.testing.routebench",
     "pushcdn_tpu_torch.broker.sharding",
     "pushcdn_tpu_torch.broker.shardring",
-    "pushcdn_tpu_torch.testing.shardharness"])
+    "pushcdn_tpu_torch.testing.shardharness",
+    "pushcdn_tpu_torch.broker.admission",
+    "pushcdn_tpu_torch.broker.rehome",
+    "pushcdn_tpu_torch.broker.retention"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -260,10 +263,12 @@ with open(os.environ["PUSHCDN_IMPORT_TRAP_LOG"] + ".armed", "a") as f:
 
 
 def test_sharded_broker_processes_do_not_import_torch(tmp_path):
-    """A ``--shards 2`` supervisor and its two workers start, serve the
-    merged endpoints and exit 0 on SIGTERM without any of them importing
-    torch, JAX or the JAX package; each worker's ``cdn_build_info`` reads
-    torch as absent and the backend as unloaded."""
+    """A ``--shards 2`` supervisor and its two workers, with admission
+    budgets and retained topics set, start, serve the merged endpoints
+    and exit 0 on SIGTERM (each worker re-homing its users on the drain)
+    without any of them importing torch, JAX or the JAX package; each
+    worker's ``cdn_build_info`` reads torch as absent and the backend as
+    unloaded."""
     import json
     import os
     import signal
@@ -297,7 +302,12 @@ def test_sharded_broker_processes_do_not_import_torch(tmp_path):
         "--metrics-bind-endpoint", f"127.0.0.1:{metrics}",
         "--user-transport", "tcp", "--shards", "2",
         env_extra={"PYTHONPATH": f"{trap_dir}{os.pathsep}{ROOT}",
-                   "PUSHCDN_IMPORT_TRAP_LOG": str(log)},
+                   "PUSHCDN_IMPORT_TRAP_LOG": str(log),
+                   # admission, retention and the drain's re-homing run
+                   # in every worker too
+                   "PUSHCDN_RETAIN_TOPICS": "0-3",
+                   "PUSHCDN_MAX_CONNS_USER": "8",
+                   "PUSHCDN_SUBSCRIBE_RATE": "10"},
         log_path=tmp_path / "broker.log")
 
     def get(path):
@@ -326,6 +336,8 @@ def test_sharded_broker_processes_do_not_import_torch(tmp_path):
                    for i in info), info
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(40) == 0, (tmp_path / "broker.log").read_text()[-3000:]
+        assert (tmp_path / "broker.log").read_text().count(
+            "drain re-home: ") == 2
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -368,6 +380,48 @@ assert metrics.ROUTE_SCALAR_FRAMES.value == 0
 assert "torch" not in sys.modules
 print("ok")
 """
+
+
+_HOST_DURABLE = r"""
+import asyncio, os, sys
+os.environ["PUSHCDN_RETAIN_TOPICS"] = "0"
+os.environ["PUSHCDN_SUBSCRIBE_RATE"] = "0.001"
+os.environ["PUSHCDN_SUBSCRIBE_BURST"] = "1"
+from pushcdn_tpu_torch.broker import rehome
+from pushcdn_tpu_torch.broker.test_harness import TestDefinition
+from pushcdn_tpu_torch.proto.message import (
+    AuthenticateResponse, Broadcast, Retained, SubscribeFrom, Subscribe,
+    deserialize)
+
+async def serve():
+    run = await TestDefinition(connected_users=[[0], []]).run()
+    await run.send_message_as(run.user(0), Broadcast([0], b"kept"))
+    await asyncio.sleep(0.1)
+    rx = run.user(1).remote
+    await rx.send_message(SubscribeFrom(topic=0, seq=0), flush=True)
+    await rx.send_message(Subscribe([1]), flush=True)   # over the bucket
+    got = [deserialize((await asyncio.wait_for(rx.recv_raw(), 5)).data)
+           for _ in range(2)]
+    assert isinstance(got[0], Retained) and bytes(got[0].payload) == b"kept"
+    assert isinstance(got[1], AuthenticateResponse) and got[1].permit == 0
+    summary = await rehome.rehome_users(run.broker)
+    assert summary["no_target"] and summary["users"] == 2, summary
+    await run.shutdown()
+
+asyncio.run(serve())
+assert "torch" not in sys.modules
+print("ok")
+"""
+
+
+def test_host_broker_retains_sheds_and_rehomes_without_torch():
+    """A broker without a plane replays a retained topic, sheds a
+    subscribe over its bucket and runs the drain's re-homing without
+    ever importing torch."""
+    r = subprocess.run([sys.executable, "-c", _HOST_DURABLE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "ok"
 
 
 def test_host_broker_serves_without_torch():

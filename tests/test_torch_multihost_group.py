@@ -341,6 +341,46 @@ async def test_same_process_cross_shard_reconnect_kicks(tmp_path):
         p.mhg.MultiHostBrokerGroup(p.mesh(2)).attach(FakeBroker("x"), 5)
 
 
+async def test_directory_entry_outlives_a_stall_inside_the_watchdog(
+        tmp_path, monkeypatch):
+    """A process whose event loop a burst holds for seconds republishes
+    its claims late. Its entries outlast any stall the collective
+    watchdog lets a live group have, so the other processes' mirrors keep
+    its users and their directs stay on the mesh; past the watchdog they
+    expire."""
+    p = _pkg("port")
+    db = str(tmp_path / "directory.sqlite")
+    group = p.mhg.MultiHostBrokerGroup(
+        p.mesh(4), p.mg.MeshGroupConfig(num_user_slots=16, ring_slots=4,
+                                        frame_bytes=256, extra_lanes=()),
+        discovery=await p.embedded.Embedded.new(db),
+        directory_refresh_s=0.25, collective_timeout_s=20.0)
+    broker = FakeBroker("b0")
+    broker.connections.observer = group.attach(broker, 0)
+    broker.connections.users[b"u"] = FakeUserConnection()
+    group.claim_user(0, b"u", [1])
+    peer = await p.embedded.Embedded.new(db)   # another process's store
+    task = asyncio.create_task(group._directory_loop())
+    try:
+        async def published():
+            return b"u" in await peer.get_user_slots()
+        await _until(published, "the claim was never published")
+    finally:
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+    real = time.time
+    try:
+        # the reads run in this order: a read deletes what has expired
+        for stall_s, kept in ((2.5, True), (20.0, True), (22.0, False)):
+            monkeypatch.setattr(p.embedded, "time", SimpleNamespace(
+                time=lambda s=stall_s: real() + s))
+            assert (b"u" in await peer.get_user_slots()) is kept, stall_s
+    finally:
+        monkeypatch.undo()
+        await peer.close()
+        await group.discovery.close()
+
+
 def test_lockstep_snapshot_keeps_full_shapes():
     """A lockstep group steps every tick at full shapes whatever it has
     staged (every process must enter the same collectives with the same

@@ -632,21 +632,28 @@ async def test_shard_worker_death_no_survivor_reorder(impl, monkeypatch):
 
 def test_durable_events_are_not_interest_deltas():
     """Durable-topic events between worker shards are kept out of the
-    interest-delta counters (the port retains no topics, so it drops
-    them, as JAX's runtime does without retention); an interest delta
-    is applied and counted on both."""
+    interest-delta counters: they go to the broker's durable topics
+    (``apply_shard_event``, the owner shard's retention and replay) where
+    it has them, and are dropped where it has none, on both packages; an
+    interest delta is applied and counted on both."""
     out = {}
+    events = [(kind, 0, b"payload")
+              for kind in ("durable_pub", "durable_retain", "durable_sub")]
     for p in (PORT, JAX):
-        conns = p.connections.Connections("pub:me/priv:me")
-        broker = SimpleNamespace(connections=conns, durable=None)
-        rt = p.sharding.ShardRuntime(broker, 1, 2, {}, {}, None)
-        for kind in ("durable_pub", "durable_retain", "durable_sub"):
-            rt.apply_event(0, (kind, 0, b"payload"))
-        dropped = rt.deltas_applied
-        rt.apply_event(0, ("user", b"u", [0]))
-        out[p.name] = (dropped, rt.deltas_applied,
-                       dict(conns.remote_user_shard))
-    assert out["port"] == out["jax"] == (0, 1, {b"u": 0})
+        got = []
+        for durable in (None, SimpleNamespace(apply_shard_event=got.append)):
+            conns = p.connections.Connections("pub:me/priv:me")
+            broker = SimpleNamespace(connections=conns, durable=durable)
+            rt = p.sharding.ShardRuntime(broker, 1, 2, {}, {}, None)
+            for event in events:
+                rt.apply_event(0, event)
+            dropped = rt.deltas_applied
+            rt.apply_event(0, ("user", b"u", [0]))
+            out.setdefault(p.name, []).append(
+                (dropped, rt.deltas_applied, dict(conns.remote_user_shard)))
+        out[p.name].append(got)
+    assert out["port"] == out["jax"] == [
+        (0, 1, {b"u": 0}), (0, 1, {b"u": 0}), events]
 
 
 async def test_sharded_tcp_users():
