@@ -5,7 +5,10 @@
 
 Phases, each printing one JSON line:
 
-1. device — requires CUDA; prints the card's name and power limit as
+1. device — requires CUDA, probed first in a child process
+   (``testing.accel_probe.require_accelerator``: a wedged card ends the
+   run with the probe's reason instead of a hang); prints the card's name
+   and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them, and the torch and CUDA versions;
 2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc and,
@@ -228,7 +231,34 @@ Phases, each printing one JSON line:
    ``/metrics`` must show ``cdn_device_messages_routed`` > 0 and its exit
    line launches after its warm-up, and ``GET /drain`` on B, which has
    no peer left, must report ``no_target`` and keep the users. One
-   ``durable`` line per run.
+   ``durable`` line per run;
+16. the operator's and the measurer's tooling on the card (appended after
+   phase 15): (a) ``python -m pushcdn_tpu_torch.scripts.local_cluster
+   --device-plane --duration 10 --base-port 0 --trace-log DIR``, the
+   README's quick start (the marshal, two brokers with dense planes on the
+   card, the echo client), which must exit 0 with every OK line of the JAX
+   runner's tier-1 test and no FAIL, each broker serving on the card; its
+   brokers' exit lines split their launches into warm-up and traffic and
+   give the frames the planes routed and those the depth-1 bypass sent
+   the host way. (b) ``testing.consensus.run_consensus`` over the port's
+   ``Cluster`` of two brokers, each with a 1024-slot plane on the card and
+   ``bypass_max_items=0``, 1024 nodes spread over them (quorum 683), 8
+   views of a 256 B proposal to every node and 1024 64 B vote directs to
+   the leader, dense then ragged: every view completes with no timeout,
+   every node receives every proposal, every leader holds a quorum, both
+   planes route and the impl's kernel launches. (c) A marshal and ``broker
+   --device-plane --user-transport tcp`` at the binary's defaults; 4
+   ``testing.clientpack`` soak processes of 255 clients on 8 topics (with
+   the publisher here, 1021 users: every one on the plane's 1024 slots);
+   64 sequenced 512 B broadcasts a topic in 8 waves of 64, 50 ms apart
+   (65,280 deliveries); every pack must end with no gap, no reorder, no
+   hard reconnect and every client's 64, the broker's ``/metrics`` must
+   show at least 512 routed on the plane and its exit line dense launches
+   after the warm-up; then 2 storm packs of 128 clients x 250 reconnect
+   cycles against it, each cycle connected or shed with a typed
+   retry-after; then the same soak against ``broker --shards 2`` without a
+   plane. One ``tooling`` line per run, the soaks' delivered msgs/s beside
+   phase 9's.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -4423,6 +4453,436 @@ def phase_durable(device, broker_rows: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the operator's and the measurer's tooling on the card
+# ---------------------------------------------------------------------------
+
+# (b): 1024 consensus nodes over two brokers, 8 views; (c): 4 soak packs of
+# 255 clients on 8 topics (1020 users and the publisher fill the binary's
+# 1024 plane slots), 64 sequenced 512 B broadcasts a topic in 8 waves, and
+# 2 storm packs of 128 clients x 250 reconnect cycles
+TOOLING = dict(runner_duration=10, nodes=1024, views=8, view_timeout_s=30.0,
+               consensus_slots=1024, packs=4, pack_clients=255, topics=8,
+               per_topic=64, payload=512, waves=8, wave_gap_s=0.05,
+               storm_packs=2, storm_clients=128, storm_cycles=250)
+
+RUNNER_OK = ("OK: end-to-end echo through real processes",
+             "readiness pre-bind: 503 not-ready", "trace chain complete",
+             "health OK (4 processes", "topology OK", "trace report OK",
+             "0 orphaned spans", "drain readiness flip observed")
+
+
+def runner_run(shape: dict = TOOLING, device=None) -> dict:
+    """Phase 16 (a): ``python -m pushcdn_tpu_torch.scripts.local_cluster
+    --device-plane`` as the README's quick start runs it (the marshal, two
+    brokers with dense planes on the card, the echo client), its span logs
+    and each process's log kept under ``.build``. Every OK line of the JAX
+    runner's tier-1 test, no FAIL; each broker serving on the card, its
+    exit line's launches split into warm-up and traffic."""
+    import glob
+    import shutil
+    label = "tooling runner"
+    tmp = os.path.join(HERE, ".build", f"tooling-runner-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    env = dict(os.environ, TMPDIR=tmp)
+    argv = [sys.executable, "-m", "pushcdn_tpu_torch.scripts.local_cluster",
+            "--device-plane", "--duration", str(shape["runner_duration"]),
+            "--base-port", "0", "--trace-log", os.path.join(tmp, "spans")]
+    if device is not None:
+        argv += ["--device", str(device)]
+    t0 = time.perf_counter()
+    # its own session, so that a runner past its time is killed with every
+    # process it started
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        import signal
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"{label}: the runner did not end in 180 s:\n"
+                           f"{out[-3000:]}") from None
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"{label}: rc {proc.returncode}:\n{out[-4000:]}")
+    for needle in RUNNER_OK:
+        check(needle in out, f"{label}: no {needle!r} line:\n{out[-4000:]}")
+    check("FAIL" not in out, f"{label}: a FAIL line:\n{out[-4000:]}")
+    (logdir,) = glob.glob(os.path.join(tmp, "pushcdn-cluster-*"))
+    card = None
+    if device is None:
+        import torch
+        card = torch.cuda.get_device_name(0)
+    brokers = {}
+    for name in ("broker0", "broker1"):
+        path = os.path.join(logdir, f"{name}.log")
+        serving = log_fields(path, "broker serving")
+        done = log_fields(path, "device plane exit")
+        check(serving is not None and done is not None,
+              f"{label}: {name} logged no serving or exit line:\n"
+              f"{log_tail(path)}")
+        check(serving["device"].startswith("cuda")
+              and serving.get("card") == card,
+              f"{label}: {name} serves its plane on {serving['device']} "
+              f"({serving.get('card')}), not on {card}")
+        check(not done["disabled"], f"{label}: {name}'s plane disabled "
+              "itself")
+        warm = serving["launches"]
+        brokers[name] = dict(
+            device=serving["device"], card=serving.get("card"),
+            delivery_impl=serving["delivery_impl"],
+            warmup_launches=warm,
+            traffic_launches={k: v - warm[k]
+                              for k, v in done["launches"].items()},
+            steps=done["steps"] - serving["steps"],
+            plane_frames=done["plane_frames"],
+            messages_routed=done["messages_routed"],
+            frames_received=done["route_frames"]["scalar"],
+            bypassed_frames=done["route_frames"]["scalar"]
+            - done["plane_frames"])
+    return dict(run="runner", command=" ".join(argv[1:]), run_s=run_s,
+                ok_lines=len(RUNNER_OK), brokers=brokers,
+                note="the echo client sends one broadcast and one direct a "
+                     "second; a batch of at most 2 items takes the plane's "
+                     "depth-1 bypass to the host path, so the warm-up may "
+                     "be the planes' only launches",
+                delivery_matrix_cuda=sum(
+                    b["traffic_launches"]["delivery_matrix_cuda"]
+                    for b in brokers.values()),
+                ragged_delivery_cuda=sum(
+                    b["traffic_launches"]["ragged_delivery_cuda"]
+                    for b in brokers.values()))
+
+
+async def consensus_run(impl: str, shape: dict = TOOLING,
+                        device=None) -> dict:
+    """Phase 16 (b): ``testing.consensus.run_consensus`` over the port's
+    ``Cluster`` of two brokers, each with a plane of ``impl`` on the card
+    (``bypass_max_items=0``: every frame, a lone vote too, through the
+    kernel), the nodes spread over the brokers by the driver's ``place``
+    hook. Every view completes with no timeout, every node receives every
+    proposal, every leader holds a quorum, both planes route, the kernel
+    launches."""
+    from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.ops import ragged_delivery as rd
+    from pushcdn_tpu_torch.proto import trace as trace_mod
+    from pushcdn_tpu_torch.testing import Cluster
+    from pushcdn_tpu_torch.testing.consensus import (
+        ConsensusConfig,
+        percentile,
+        run_consensus,
+    )
+
+    label = f"tooling consensus {impl}"
+    n, views = shape["nodes"], shape["views"]
+    cfg = ConsensusConfig(num_nodes=n, num_views=views,
+                          view_timeout_s=shape["view_timeout_s"],
+                          trace=False)
+    trace_mod.set_log_path(None)
+    t0 = time.perf_counter()
+    cluster = await Cluster(num_brokers=2, device_plane=DevicePlaneConfig(
+        num_user_slots=shape["consensus_slots"], bypass_max_items=0,
+        delivery_impl=impl), device=device).start()
+    try:
+        start_s = time.perf_counter() - t0
+        before = (dk.LAUNCHES, rd.LAUNCHES)
+
+        async def place(i):
+            await cluster.place_on(i % 2)
+
+        t1 = time.perf_counter()
+        run = await run_consensus(cluster, cfg, drain_s=10.0, place=place)
+        run_s = time.perf_counter() - t1
+        launches = (dk.LAUNCHES - before[0], rd.LAUNCHES - before[1])
+        planes = [b.device_plane for b in cluster.brokers]
+        users = [b.connections.num_users for b in cluster.brokers]
+    finally:
+        await cluster.stop()
+    check(run.completed == views and run.timeouts == 0,
+          f"{label}: {run.completed} of {views} views completed, "
+          f"{run.timeouts} timed out")
+    check(len(run.proposal_delivery_s) == views * n,
+          f"{label}: {len(run.proposal_delivery_s)} of {views * n} "
+          "proposal deliveries")
+    check(all(v.votes >= cfg.effective_quorum() for v in run.views),
+          f"{label}: a leader short of quorum: "
+          f"{[v.votes for v in run.views]}")
+    check(users == [n // 2, n // 2], f"{label}: nodes per broker {users}")
+    check(all(p.messages_routed > 0 and not p.disabled
+              and p.delivery_impl == impl for p in planes),
+          f"{label}: planes routed {[p.messages_routed for p in planes]}, "
+          f"disabled {[p.disabled for p in planes]}")
+    kernel = launches[0 if impl == "dense" else 1]
+    check(kernel > 0, f"{label}: the {impl} kernel never launched")
+
+    def ms(samples, q):
+        return percentile(sorted(samples), q) * 1e3
+
+    done = sorted(v.completion_s for v in run.views)
+    return dict(
+        run="consensus", impl=impl, nodes=n, views=views,
+        quorum=cfg.effective_quorum(), brokers=2, nodes_per_broker=users,
+        proposal_bytes=cfg.proposal_bytes, vote_bytes=cfg.vote_bytes,
+        bypass_max_items=0, start_s=start_s, run_s=run_s,
+        completed=run.completed, timeouts=run.timeouts,
+        votes_at_completion=[v.votes for v in run.views],
+        proposal_deliveries=len(run.proposal_delivery_s),
+        vote_deliveries=len(run.vote_delivery_s),
+        view_completion_ms_p50=ms(done, 0.50),
+        view_completion_ms_p99=ms(done, 0.99),
+        proposal_delivery_ms_p99=ms(run.proposal_delivery_s, 0.99),
+        vote_delivery_ms_p99=ms(run.vote_delivery_s, 0.99),
+        messages_routed=[p.messages_routed for p in planes],
+        steps=[p.steps for p in planes],
+        delivery_matrix_cuda=launches[0], ragged_delivery_cuda=launches[1])
+
+
+async def soak_run(label: str, shape: dict, plane: bool,
+                   shards: int = 1, device=None) -> dict:
+    """Phase 16 (c), one deployment: a marshal and a broker (``plane``:
+    ``--device-plane`` at the binary's defaults on the card; else
+    ``--shards``) as processes on a fresh discovery file, plain TCP users;
+    ``packs`` soak packs of ``pack_clients`` clients (``python -m
+    pushcdn_tpu_torch.testing.clientpack``), then a publisher here sends
+    ``per_topic`` sequenced broadcasts on each topic in ``waves`` waves.
+    Every pack ends with no gap, no reorder, no hard reconnect and every
+    client's full count. With a plane (on ``device``, the binary's CUDA
+    default unless named): its ``/metrics`` routed count and its exit
+    line's launches, then the storm packs against it."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.transport import Tcp
+    from pushcdn_tpu_torch.testing.packs import Pack, publish_sequenced
+
+    tag = f"tooling-{'plane' if plane else f'shards{shards}'}-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    pub, priv, marshal, marshal_metrics = ports = free_ports(4)
+    broker_metrics = metrics_port(shards if shards > 1 else 0, ports)
+    kids = Children(tag)
+    packs = []
+    publisher = None
+    row = dict(run="soak", broker="--device-plane" if plane
+               else f"--shards {shards}", transport="tcp",
+               packs=shape["packs"], clients=shape["packs"]
+               * shape["pack_clients"], topics=shape["topics"],
+               broadcasts=shape["topics"] * shape["per_topic"],
+               payload_bytes=shape["payload"])
+    try:
+        kids.spawn("broker", "--discovery-endpoint", db,
+                   "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                   "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                   "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                   "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{broker_metrics}",
+                   "--user-transport", "tcp",
+                   *(["--device-plane"] if plane
+                     else ["--shards", str(shards)]),
+                   *(["--device", str(device)] if device else []))
+        kids.spawn("marshal", "--discovery-endpoint", db,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{marshal_metrics}",
+                   "--user-transport", "tcp")
+        serving = await kids.wait_for_line("broker", "broker serving", label,
+                                           timeout=180, count=shards)
+        try:
+            async with asyncio.timeout(60):   # the broker registered
+                while (await asyncio.to_thread(http_get, marshal_metrics,
+                                               "/readyz") or (0,))[0] != 200:
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: the marshal was not ready in 60 s:"
+                               f"\n{log_tail(kids.logs['marshal'])}") from None
+        endpoint = f"127.0.0.1:{marshal}"
+        t0 = time.perf_counter()
+        for k in range(shape["packs"]):
+            packs.append(Pack(
+                endpoint, "soak", shape["pack_clients"], 100_000 + 1_000 * k,
+                "--report-every-s", "5", "--settle-s", "0.5",
+                topics=shape["topics"],
+                log_path=os.path.join(HERE, ".build", f"{tag}-pack{k}.log")))
+        for pack in packs:
+            await asyncio.to_thread(pack.wait, "ready", 120)
+        row["connect_s"] = time.perf_counter() - t0
+        publisher = Client(ClientConfig(
+            marshal_endpoint=endpoint,
+            keypair=DEFAULT_SCHEME.generate_keypair(seed=99_999),
+            protocol=Tcp, subscribed_topics=set()))
+        async with asyncio.timeout(60):
+            await publisher.ensure_initialized()
+        kids.check_alive(label)
+        want = row["clients"] * shape["per_topic"]
+        t0 = time.perf_counter()
+        await publish_sequenced(publisher, shape["topics"],
+                                shape["per_topic"], shape["payload"],
+                                waves=shape["waves"],
+                                gap_s=shape["wave_gap_s"])
+        row["publish_s"] = time.perf_counter() - t0
+
+        async def delivered() -> int:
+            total = 0
+            for pack in packs:
+                pack.send("mark")
+                total += (await asyncio.to_thread(pack.wait, "mark",
+                                                  30))["delivered"]
+            return total
+
+        try:
+            async with asyncio.timeout(60):
+                while (got := await delivered()) < want:
+                    await asyncio.sleep(0.05)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {got} of {want} deliveries in "
+                               "60 s") from None
+        busy_s = time.perf_counter() - t0
+        for pack in packs:
+            pack.send("finish")
+        results = [await asyncio.to_thread(pack.wait, "result", 60)
+                   for pack in packs]
+        for k, r in enumerate(results):
+            check(r["gaps"] == 0 and r["reorders"] == 0
+                  and r["hard_reconnects"] == 0,
+                  f"{label}: pack {k} gaps {r['gaps']}, reorders "
+                  f"{r['reorders']}, hard reconnects {r['hard_reconnects']}")
+            check(r["unique"] == r["clients"] * shape["per_topic"],
+                  f"{label}: pack {k} unique {r['unique']} of "
+                  f"{r['clients'] * shape['per_topic']}")
+        for pack in packs:
+            pack.close()
+        row.update(deliveries=want, busy_s=busy_s,
+                   delivered_msgs_per_s=want / busy_s,
+                   duplicates=sum(r["delivered"] - r["unique"]
+                                  for r in results),
+                   gaps=0, reorders=0, hard_reconnects=0)
+        status, text = await asyncio.to_thread(http_get, broker_metrics,
+                                               "/metrics")
+        check(status == 200, f"{label}: /metrics answered {status}")
+        if plane:
+            routed = metric(text, "cdn_device_messages_routed")
+            check(routed >= row["broadcasts"], f"{label}: /metrics shows "
+                  f"cdn_device_messages_routed {routed}")
+            row["messages_routed"] = routed
+            row["storm"] = await storm(endpoint, shape, tag)
+        kids.terminate(label)
+        if plane:
+            done = log_fields(kids.logs["broker"], "device plane exit")
+            warm = serving["launches"]
+            traffic = {k: v - warm[k] for k, v in done["launches"].items()}
+            check(traffic["delivery_matrix_cuda"] > 0, f"{label}: the broker "
+                  "never launched delivery_matrix_cuda after its warm-up")
+            check(not done["disabled"], f"{label}: the plane disabled itself")
+            row.update(warmup_launches=warm, steps=done["steps"],
+                       busy_steps=done["busy_steps"],
+                       delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
+                       ragged_delivery_cuda=traffic["ragged_delivery_cuda"])
+        return row
+    finally:
+        if publisher is not None:
+            publisher.close()
+        for pack in packs:
+            pack.close(1.0)
+        kids.kill()
+
+
+async def storm(endpoint: str, shape: dict, tag: str) -> dict:
+    """Phase 16 (c)'s storm: ``storm_packs`` packs of ``storm_clients``
+    clients, ``storm_cycles`` reconnect cycles each; every cycle connects
+    or is shed with a typed retry-after, nothing else fails."""
+    from pushcdn_tpu_torch.testing.packs import Pack
+
+    packs = [Pack(endpoint, "storm", shape["storm_clients"],
+                  200_000 + 1_000 * k, "--storm-connections",
+                  str(shape["storm_cycles"]), "--hold-ms", "10",
+                  log_path=os.path.join(HERE, ".build",
+                                        f"{tag}-storm{k}.log"))
+             for k in range(shape["storm_packs"])]
+    try:
+        results = [await asyncio.to_thread(p.wait, "result", 120)
+                   for p in packs]
+    finally:
+        for p in packs:
+            p.close()
+    for k, r in enumerate(results):
+        check(r["established"] == shape["storm_cycles"],
+              f"storm pack {k}: {r['established']} of "
+              f"{shape['storm_cycles']} cycles connected")
+        check(r["attempts"] - r["established"] == r["sheds"],
+              f"storm pack {k}: {r['attempts']} attempts, "
+              f"{r['established']} connected, {r['sheds']} shed: another "
+              "failure")
+    return dict(packs=len(results), clients=shape["storm_clients"],
+                cycles=[r["established"] for r in results],
+                attempts=[r["attempts"] for r in results],
+                sheds=[r["sheds"] for r in results],
+                conn_p50_ms=[r["conn_p50_ms"] for r in results],
+                conn_p99_ms=[r["conn_p99_ms"] for r in results],
+                conns_per_s=[r["conns_per_s"] for r in results])
+
+
+def phase_tooling(cluster_rows: dict, shape: dict = TOOLING,
+                  device=None) -> dict:
+    """Phase 16: (a) the runner on the card, (b) the consensus workload
+    through each kernel, (c) client packs against a plane broker and
+    against ``--shards 2``, beside phase 9's rates. One ``tooling`` line
+    per run; returns each kernel's launches over the phase's traffic."""
+    # the broker process holds a socket for every pack client
+    need = shape["packs"] * shape["pack_clients"] + 256
+    limit = raise_fd_limit()
+    check(limit >= need, f"tooling: the broker needs {need} open files; "
+          f"the hard limit is {limit}")
+    launches = {"dense": 0, "ragged": 0}
+    seconds = {}
+
+    def add(row):
+        launches["dense"] += row.get("delivery_matrix_cuda", 0)
+        launches["ragged"] += row.get("ragged_delivery_cuda", 0)
+
+    t = time.perf_counter()
+    row = runner_run(shape, device)
+    seconds["a"] = time.perf_counter() - t
+    add(row)
+    emit("tooling", **row)
+    t = time.perf_counter()
+    for impl in ("dense", "ragged"):
+        row = asyncio.run(consensus_run(impl, shape, device))
+        add(row)
+        emit("tooling", **row)
+    seconds["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plane = asyncio.run(soak_run("tooling soak plane", shape, plane=True,
+                                 device=device))
+    add(plane)
+    sharded = asyncio.run(soak_run("tooling soak --shards 2", shape,
+                                   plane=False, shards=2))
+    seconds["c"] = time.perf_counter() - t
+    beside = {}
+    if "host" in cluster_rows:
+        beside["phase9_host_msgs_per_s"] = \
+            cluster_rows["host"]["delivered_msgs_per_s"]
+    if "dense" in cluster_rows:
+        beside["phase9_dense_uniform_msgs_per_s"] = \
+            cluster_rows["dense"]["by_popularity"]["uniform"][
+                "delivered_msgs_per_s"]
+    emit("tooling", **plane, **beside)
+    emit("tooling", **sharded, **beside,
+         shards2_over_plane_broker=sharded["delivered_msgs_per_s"]
+         / plane["delivered_msgs_per_s"])
+    emit("tooling", run="phase 16 seconds", **seconds,
+         total=sum(seconds.values()))
+    check(launches["dense"] > 0, "tooling: delivery_matrix_cuda never "
+          "launched on phase 16's traffic")
+    check(launches["ragged"] > 0, "tooling: ragged_delivery_cuda never "
+          "launched on phase 16's traffic")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4438,17 +4898,25 @@ def nvidia_smi(query: str, *fmt: str) -> str:
 def main() -> int:
     import torch
     raise_fd_limit()   # before any child process: they inherit it
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
     sys.path.insert(0, HERE)
     try:
         from pushcdn_tpu_torch.ops import _build
         from pushcdn_tpu_torch.ops import delivery_kernel as dk
         from pushcdn_tpu_torch.ops import ragged_delivery as rd
+        from pushcdn_tpu_torch.testing.accel_probe import require_accelerator
     except ImportError as e:
         print(f"chip_smoke: the pushcdn_tpu_torch package is missing ({e})",
               file=sys.stderr)
+        return 2
+    # a wedged card hangs the first CUDA call of a process: probe it in a
+    # child first, and end with the probe's reason instead of a hang
+    try:
+        require_accelerator("chip_smoke")
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -4691,13 +5159,21 @@ def main() -> int:
     # the three runs' launches join the kernel line's
     launches["dense"] += phase_durable(device, broker_rows)
     lap(15)
+    # 16. the runner, the consensus workload and the client packs on the
+    # card; the runner's brokers', the consensus clusters' and the soak
+    # broker's launches over their traffic join the kernel line's
+    tooling = phase_tooling(cluster_rows)
+    launches["dense"] += tooling["dense"]
+    launches["ragged"] += tooling["ragged"]
+    lap(16)
     emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
          total=sum(laps.values()))
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's, the
-    # broker processes' of the cluster phase, the mesh-broker group runs'
-    # and the multi-host phase's worker and broker processes
+    # broker processes' of the cluster phase, the mesh-broker group runs',
+    # the multi-host phase's worker and broker processes', phase 15's and
+    # phase 16's
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

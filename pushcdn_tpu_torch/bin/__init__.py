@@ -1,4 +1,6 @@
 """Deployment binaries (reference L10, SURVEY.md §1): ``broker``,
-``marshal`` and ``client``, run as ``python -m pushcdn_tpu_torch.bin.broker``
-etc. The JAX package's chaos generators (``bad_broker``, ``bad_connector``,
-``bad_sender``) are not copied yet."""
+``marshal``, ``client`` plus the chaos generators ``bad_broker``,
+``bad_connector``, ``bad_sender``. Run as ``python -m
+pushcdn_tpu_torch.bin.broker`` etc.; ``python -m
+pushcdn_tpu_torch.scripts.local_cluster`` wires a full local deployment
+(process-compose parity)."""

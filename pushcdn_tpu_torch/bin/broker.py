@@ -185,18 +185,30 @@ def log_plane(what: str, plane) -> None:
     """One line of JSON after ``what``: the plane's counters (for a mesh
     group's shard, the group's), the medians of its recent steps' parts
     in ms, this process's kernel launches, whether the native host
-    routines loaded and the steps egressed through their encoder."""
+    routines loaded and the steps egressed through their encoder, the
+    card's name for a plane on CUDA (``card``), the
+    frames the plane's recent steps routed (``plane_frames``) and the
+    frames the receive loops took, by route path (``route_frames``; under
+    a plane every received frame counts as ``scalar``, staged or not)."""
     from pushcdn_tpu_torch import native
-    fields = dict(launches=kernel_launches(), native=native.available())
+    from pushcdn_tpu_torch.proto import metrics as metrics_mod
+    fields = dict(launches=kernel_launches(), native=native.available(),
+                  route_frames={p: metrics_mod.ROUTE_FRAMES.labels(
+                      path=p).value for p in ("cutthrough", "residual",
+                                              "scalar")})
     if plane is not None:
         group = getattr(plane, "group", None)
         owner = plane if group is None else group
         fields.update(steps=plane.steps, messages_routed=plane.messages_routed,
                       disabled=plane.disabled, busy_steps=owner.busy_steps,
-                      native_egress_steps=owner.native_egress_steps)
+                      native_egress_steps=owner.native_egress_steps,
+                      plane_frames=sum(st.frames for st in owner.recent_steps))
         if group is None:
             fields.update(delivery_impl=plane.delivery_impl,
                           device=str(plane.device))
+            if plane.device.type == "cuda":
+                import torch
+                fields["card"] = torch.cuda.get_device_name(plane.device)
         else:
             from pushcdn_tpu_torch.parallel.multihost import (
                 exchange_transport,

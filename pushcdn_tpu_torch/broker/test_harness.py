@@ -15,10 +15,11 @@ The injected entities' *remote* connection ends act as the test's hands:
 ``assert_silence`` check exact delivery sets and the absence of duplicates
 with short timeouts (mod.rs:45-107).
 
-A copy of ``pushcdn_tpu.broker.test_harness`` without the loopback-TCP
-user links (the TCP transport is not copied yet). A broker built with a
-device plane (``BrokerConfig(device_plane=..., device=...)``) is wrapped
-as ``TestRun(broker=broker)`` and injected into the same way.
+A copy of ``pushcdn_tpu.broker.test_harness``. ``TestDefinition(
+tcp_users=True)`` injects the users over loopback TCP instead of Memory
+pairs. A broker built with a device plane (``BrokerConfig(device_plane=...,
+device=...)``) is wrapped as ``TestRun(broker=broker)`` and injected into
+the same way.
 """
 
 from __future__ import annotations
@@ -71,6 +72,10 @@ class TestDefinition:
     # e.g. "127.0.0.1:0" to exercise the observability endpoint
     # (/healthz, /readyz, /debug/topology) against an injected broker
     metrics_bind_endpoint: Optional[str] = None
+    # route the injected user links over real loopback TCP instead of the
+    # Memory pair: the whole forwarding path then crosses real sockets on
+    # both ends while the broker internals stay identical
+    tcp_users: bool = False
     # widen the topic space (wildcard/durable scenarios) or shrink the
     # byte pool (pool-pressure scenarios); None = harness defaults
     topics: Optional[object] = None
@@ -99,7 +104,10 @@ class TestDefinition:
         broker = await Broker.new(config)
         await broker.start()
         run = TestRun(broker=broker)
-        await run.inject_users(self.connected_users)
+        if self.tcp_users:
+            await run.inject_users_tcp(self.connected_users)
+        else:
+            await run.inject_users(self.connected_users)
         await run.inject_brokers(self.connected_brokers)
         return run
 
@@ -110,12 +118,33 @@ class TestRun:
     broker: Broker
     connected_users: List[TestUser] = field(default_factory=list)
     connected_brokers: List[TestBroker] = field(default_factory=list)
+    tcp_listener: Optional[object] = None  # set by inject_users_tcp
 
     async def inject_users(self, user_topics) -> None:
         """Parity inject_users (mod.rs:258-300): real receive loops, no auth."""
         for i, topics in enumerate(user_topics):
             key = f"user-{i}".encode()
             local, remote = await gen_testing_connection_pair(self.broker.limiter)
+            task = asyncio.create_task(
+                user_receive_loop(self.broker, key, local))
+            self.broker.connections.add_user(key, local, list(topics),
+                                             AbortOnDropHandle(task))
+            self.connected_users.append(TestUser(key, remote))
+
+    async def inject_users_tcp(self, user_topics) -> None:
+        """``inject_users`` over real loopback TCP: the broker side accepts
+        and finalizes with the broker limiter (what the public accept loop
+        does after auth), then spawns the same ``user_receive_loop``."""
+        from pushcdn_tpu_torch.proto.transport.tcp import Tcp
+        listener = await Tcp.bind("127.0.0.1:0")
+        self.tcp_listener = listener
+        port = listener.bound_port
+        for i, topics in enumerate(user_topics):
+            key = f"user-{i}".encode()
+            accept_t = asyncio.create_task(listener.accept())
+            remote = await Tcp.connect(f"127.0.0.1:{port}",
+                                       limiter=self.broker.limiter)
+            local = await (await accept_t).finalize(self.broker.limiter)
             task = asyncio.create_task(
                 user_receive_loop(self.broker, key, local))
             self.broker.connections.add_user(key, local, list(topics),
@@ -179,6 +208,8 @@ class TestRun:
             u.remote.close()
         for b in self.connected_brokers:
             b.remote.close()
+        if self.tcp_listener is not None:
+            await self.tcp_listener.close()
         await self.broker.stop()
 
     # index helpers (parity at_index!)

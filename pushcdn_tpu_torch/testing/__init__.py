@@ -4,15 +4,25 @@ brokers on one discovery file; ``MeshCluster``: a marshal and the N
 broker shards of one mesh group); the two-process deployment
 (``two_host``) and the worker modules that run one process of a pair
 (``lockstep_worker``, ``two_host_worker``, ``burst_worker``); the
-in-process worker-shard harness (``shardharness.run_sharded``)."""
+in-process worker-shard harness (``shardharness.run_sharded``); the
+consensus workload (``consensus``: ``ConsensusConfig``, ``run_consensus``),
+the client-pack worker (``clientpack``), run provenance (``provenance``)
+and the out-of-process card probe (``accel_probe``)."""
 
 from pushcdn_tpu_torch.testing.cluster import (  # noqa: F401
     Cluster,
     wait_mesh_interest,
     wait_until,
 )
+from pushcdn_tpu_torch.testing.consensus import (  # noqa: F401
+    ConsensusConfig,
+    ConsensusDriver,
+    ConsensusRun,
+    run_consensus,
+)
 
-__all__ = ["Cluster", "MeshCluster", "TwoHostNode", "make_two_host_node",
+__all__ = ["Cluster", "ConsensusConfig", "ConsensusDriver", "ConsensusRun",
+           "MeshCluster", "TwoHostNode", "make_two_host_node",
            "spawn_worker_pair", "wait_mesh_interest", "wait_until"]
 
 

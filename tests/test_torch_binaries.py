@@ -9,7 +9,8 @@ each, a broadcast crossing from one to the other and a direct crossing
 back with no host broker link; and the broker refuses what it cannot
 serve: a plane on CUDA where there is none, delivery impls, schemes and
 discovery stores the port lacks, and the mesh-group flags the JAX binary
-refuses."""
+refuses; and the three chaos binaries (``bad_broker``, ``bad_connector``,
+``bad_sender``) each run a few cycles against a marshal and broker."""
 
 import asyncio
 import json
@@ -24,7 +25,8 @@ import pytest
 
 from pushcdn_tpu_torch.bin.common import spawn_binary
 
-BINARIES = ("broker", "marshal", "client")
+BINARIES = ("broker", "marshal", "client", "bad_broker", "bad_connector",
+            "bad_sender")
 
 
 def _free_ports(n: int) -> list:
@@ -725,3 +727,106 @@ async def test_sharded_broker_rehomes_the_users_of_every_worker(tmp_path):
     deals the clients over both workers): the supervisor forwards the
     signal and each worker re-homes its own users."""
     await _rehome_run(tmp_path, shards=2)
+
+
+def _free_run(n: int) -> int:
+    """A base port with ``n`` consecutive free ports above it."""
+    for _ in range(200):
+        (base,) = _free_ports(1)
+        if base + n >= 65536:
+            continue
+        socks = []
+        try:
+            for off in range(n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no run of free ports")
+
+
+@pytest.mark.parametrize("name", ["bad_broker", "bad_connector",
+                                  "bad_sender"])
+async def test_chaos_binary_runs_against_a_deployment(tmp_path, name,
+                                                     monkeypatch):
+    """A marshal and a broker serve; the chaos binary runs 3 cycles
+    against them and exits 0: ``bad_broker`` starts three brokers on the
+    deployment's discovery file, each killing the one before;
+    ``bad_connector`` authenticates three fresh identities; ``bad_sender``
+    broadcasts three 4 KB messages."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.transport import Tcp
+
+    # whatever io knobs another test of this process left set
+    monkeypatch.setenv("PUSHCDN_IO_IMPL", "asyncio")
+    monkeypatch.delenv("PUSHCDN_IO_URING", raising=False)
+    db = str(tmp_path / "cdn.sqlite")
+    pub, priv, marshal = _free_ports(3)
+    logs = {n: tmp_path / f"{n}.log" for n in ("broker", "marshal", name)}
+    procs = {
+        "broker": spawn_binary(
+            "broker", *_broker_args(db, pub, priv, "--user-transport", "tcp"),
+            log_path=logs["broker"]),
+        "marshal": spawn_binary(
+            "marshal", "--discovery-endpoint", db,
+            "--bind-endpoint", f"127.0.0.1:{marshal}",
+            "--user-transport", "tcp", log_path=logs["marshal"]),
+    }
+    try:
+        await _wait_for_line(logs["broker"], "broker serving",
+                             procs["broker"])
+        # the broker is registered once a client gets through the marshal
+        probe = Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}",
+            keypair=DEFAULT_SCHEME.generate_keypair(seed=9400),
+            protocol=Tcp, subscribed_topics={0}))
+        async with asyncio.timeout(45):
+            await probe.ensure_initialized()
+        if name == "bad_broker":
+            args = ["--discovery-endpoint", db, "--cycles", "3",
+                    "--churn-interval", "0.3",
+                    "--base-port", str(_free_run(6))]
+        else:
+            args = ["--marshal-endpoint", f"127.0.0.1:{marshal}",
+                    "--cycles", "3"]
+            if name == "bad_connector":
+                args += ["--connect-interval", "0.05"]
+            else:
+                args += ["--message-size", "4096"]
+        proc = spawn_binary(name, *args, log_path=logs[name])
+        rc = await asyncio.to_thread(proc.wait, 60)
+        text = logs[name].read_text()
+        assert rc == 0, text[-3000:]
+        if name == "bad_broker":
+            import re
+            ups = re.findall(r"churn (\d+): broker on ports \d+/\d+ up", text)
+            assert ups == ["0", "1", "2"], text[-3000:]
+            assert text.count("previous broker killed") == 2, text[-3000:]
+        elif name == "bad_connector":
+            assert text.count("fresh identity connected") == 3, text[-3000:]
+            assert "failed" not in text, text[-3000:]
+        else:
+            assert "firehose: 1 msgs" in text, text[-3000:]
+            # the probe, subscribed to topic 0, takes the three broadcasts
+            got = 0
+            async with asyncio.timeout(20):
+                while got < 3:
+                    got += len(await probe.receive_messages())
+        probe.close()
+        for n in ("broker", "marshal"):
+            procs[n].send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(procs[n].wait, 30)
+               for n in ("broker", "marshal")}
+        assert rcs == {"broker": 0, "marshal": 0}, \
+            {n: logs[n].read_text()[-2000:] for n in rcs}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()

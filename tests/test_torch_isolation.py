@@ -147,7 +147,9 @@ assert not any(m == "jax" or m.startswith(("jax.", "pushcdn_tpu."))
 """
 
 
-@pytest.mark.parametrize("name", ["broker", "marshal", "client"])
+@pytest.mark.parametrize("name", ["broker", "marshal", "client",
+                                  "bad_broker", "bad_connector",
+                                  "bad_sender"])
 def test_binaries_run_with_jax_and_reference_blocked(name):
     r = subprocess.run([sys.executable, "-c", _BINARY, name], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -229,7 +231,16 @@ print(line)
     "pushcdn_tpu_torch.testing.shardharness",
     "pushcdn_tpu_torch.broker.admission",
     "pushcdn_tpu_torch.broker.rehome",
-    "pushcdn_tpu_torch.broker.retention"])
+    "pushcdn_tpu_torch.broker.retention",
+    "pushcdn_tpu_torch.scripts.local_cluster",
+    "pushcdn_tpu_torch.testing.clientpack",
+    "pushcdn_tpu_torch.testing.packs",
+    "pushcdn_tpu_torch.testing.consensus",
+    "pushcdn_tpu_torch.testing.provenance",
+    "pushcdn_tpu_torch.testing.accel_probe",
+    "pushcdn_tpu_torch.bin.bad_broker",
+    "pushcdn_tpu_torch.bin.bad_connector",
+    "pushcdn_tpu_torch.bin.bad_sender"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -346,6 +357,38 @@ def test_sharded_broker_processes_do_not_import_torch(tmp_path):
     # the trap was armed in the supervisor and in both workers
     armed = set((tmp_path / "imports.log.armed").read_text().split())
     assert len(armed) >= 3, armed
+
+
+def test_runner_and_its_processes_do_not_import_torch(tmp_path):
+    """The local cluster runner without ``--device-plane``, and every
+    process it starts (two brokers, the marshal, the echo client and
+    ``scripts/trace_report.py``), runs its whole check list with an import
+    trap for torch, JAX and the JAX package armed in each."""
+    import os
+
+    trap_dir = tmp_path / "trap"
+    trap_dir.mkdir()
+    (trap_dir / "sitecustomize.py").write_text(_IMPORT_TRAP)
+    log = tmp_path / "imports.log"
+    log.write_text("")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PUSHCDN_IO_IMPL", "PUSHCDN_IO_URING", "PUSHCDN_PUMP")}
+    env.update(PUSHCDN_IMPORT_TRAP_LOG=str(log),
+               PYTHONPATH=f"{trap_dir}{os.pathsep}{ROOT}")
+    r = subprocess.run(
+        [sys.executable, "-m", "pushcdn_tpu_torch.scripts.local_cluster",
+         "--duration", "10", "--base-port", "0",
+         "--trace-log", str(tmp_path / "spans")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=180)
+    out = r.stdout + r.stderr
+    assert r.returncode == 0, out[-4000:]
+    assert "OK: end-to-end echo through real processes" in out, out[-4000:]
+    assert "trace report OK" in out, out[-4000:]
+    assert log.read_text() == "", log.read_text()[-3000:]
+    # armed in the runner, 2 brokers, the marshal, the client and the
+    # trace report (run until the chain is complete)
+    armed = set((tmp_path / "imports.log.armed").read_text().split())
+    assert len(armed) >= 6, armed
 
 
 _HOST_BROKER = r"""
