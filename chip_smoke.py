@@ -104,8 +104,9 @@ Phases, each printing one JSON line:
    users injected on each shard's broker over the Memory transport as in
    phase 8, 3 topics each of 256 drawn uniform or zipf(1/rank), 64 of
    them (16 a shard) publishing bursts of 2048 frames in phase 8's mix,
-   directs to users on any shard. Runs: (1) the per-array exchange, 3
-   uniform bursts, every user moved to zipf topics, 1 zipf burst; (2) the
+   directs to users on any shard. Runs: (1) the per-array exchange, 2
+   uniform bursts (3 until the script's time limit cut one, named on the
+   run's line), every user moved to zipf topics, 1 zipf burst; (2) the
    fused exchange, 2 uniform bursts, every tick counting one collective;
    (3) on that group, shard 3's broker stopped, 1 uniform burst from the
    survivors' publishers (directs to its users take the host path and
@@ -180,8 +181,9 @@ Phases, each printing one JSON line:
    256 each, users 0-63 publishing one 2048-frame burst of phase 8's mix
    paced as phase 8 paces it, the pipes widened as there, rings at the
    binary's default size: 2 worker shards at uniform and at zipf, on
-   phase 8's seeds (4 worker shards: ``phase_shards``'s ``runs``, left
-   out for the time limit); each run must deliver exactly the
+   phase 8's seeds, the zipf run on 2048 of the 4096 users (4 worker
+   shards: ``phase_shards``'s ``runs``; both cuts for the time limit, the
+   second named on its line); each run must deliver exactly the
    oracle's frames in publisher order per lane, plan every publisher
    frame under ``path=cutthrough``, hand records to the rings (shed
    none) and leave every worker's byte pool whole after shutdown; its
@@ -254,11 +256,36 @@ Phases, each printing one JSON line:
    (65,280 deliveries); every pack must end with no gap, no reorder, no
    hard reconnect and every client's 64, the broker's ``/metrics`` must
    show at least 512 routed on the plane and its exit line dense launches
-   after the warm-up; then 2 storm packs of 128 clients x 250 reconnect
-   cycles against it, each cycle connected or shed with a typed
+   after the warm-up; then a storm pack of 128 clients x 250 reconnect
+   cycles against it (2 packs until the script's time limit cut one,
+   named on the line), each cycle connected or shed with a typed
    retry-after; then the same soak against ``broker --shards 2`` without a
    plane. One ``tooling`` line per run, the soaks' delivered msgs/s beside
-   phase 9's.
+   phase 9's;
+17. the host I/O engines under the planes (appended after phase 16): the
+   port's io_uring probe first (``native.uring.probe()``; the shim must
+   build, and only ``ENOSYS`` or ``EPERM`` may deny it, reported as
+   ``{"phase": "io", "io_uring": "denied: <errno>"}``). Where it is
+   allowed: (a) phase 16 (c)'s soak against ``broker --device-plane
+   --user-transport tcp --io-impl uring`` (the marshal on ``--io-impl
+   uring``, the packs with ``PUSHCDN_IO_IMPL=uring``, no storm), every
+   pack whole, the broker's ``/metrics`` reading ``cdn_io_impl{impl=
+   "uring"}`` 1, at least 512 routed on the plane and its io_uring_enter
+   timings, its exit line dense launches after the warm-up with every busy
+   step egressed natively; (b) the same soak against a plane-less broker
+   with ``--io-impl uring --pump auto`` (frames under
+   ``cdn_route_batch_frames{path="pump"}``) and, allowed or not, on
+   asyncio (frames under ``path="cutthrough"``), with (a)'s rate over
+   each. (c) A marshal and ``broker --device-plane --user-transport
+   quic`` with ``PUSHCDN_DELIVERY_IMPL=ragged`` (the broker link on
+   TCP); 256 QUIC clients here with seeded keys, 32 on each of 8 topics,
+   and a QUIC publisher sending 64 sequenced 512 B broadcasts a topic in
+   8 waves 50 ms apart (16,384 deliveries), then each client a direct to
+   itself: every client gets its topic's 64 in order and its direct,
+   ``/metrics`` at least 512 routed, the exit line ragged launches after
+   the warm-up, every process exits 0 on SIGTERM; connect seconds,
+   delivered msgs/s and publish-to-receive p50 / p99. One ``io`` line per
+   run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -2402,8 +2429,10 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
         await mb.start()
         try:
             rows["per-array"] = await group_run(
-                mb, "mesh broker per-array", [("uniform", 3), ("zipf", 1)],
+                mb, "mesh broker per-array", [("uniform", 2), ("zipf", 1)],
                 pubs)
+            rows["per-array"]["cut"] = ("2 uniform bursts, not 3, for the "
+                                        "script's time limit")
         finally:
             await mb.shutdown()
         rows["per-array"]["run_s"] = time.perf_counter() - t
@@ -3657,22 +3686,28 @@ async def sharded_run(popularity: str, seed: int, shape: dict,
 
 def phase_shards(broker_rows: dict, cluster_rows: dict,
                  shape: dict = BROKER, cluster: dict = CLUSTER,
-                 runs=((2, "uniform"), (2, "zipf"))) -> dict:
+                 runs=((2, "uniform", None), (2, "zipf", 2048))) -> dict:
     """Phase 14: the sharded host data plane. (a) ``runs`` (worker shards,
-    popularity) in process at phase 8's width on phase 8's seeds, each
-    beside phase 8's ``host`` run on the same burst; (b) a marshal and
-    ``broker --shards 2`` as processes with phase 9's clients and uniform
-    bursts, beside phase 9's plane-less broker; (c) ``--shards 2
-    --device-plane`` refused. One ``shards`` line per run. A run of 4
-    worker shards (``runs`` with ``(4, "uniform")``) is left out for the
-    script's time limit."""
+    popularity, users) in process at phase 8's width on phase 8's seeds,
+    each beside phase 8's ``host`` run on the same burst; (b) a marshal
+    and ``broker --shards 2`` as processes with phase 9's clients and
+    uniform bursts, beside phase 9's plane-less broker; (c) ``--shards 2
+    --device-plane`` refused. One ``shards`` line per run. For the
+    script's time limit a run of 4 worker shards (``(4, "uniform",
+    None)``) is left out, and the zipf run takes 2048 of phase 8's users
+    (``users`` not None: another burst than phase 8's, so no ratio to
+    it; the cut is named on its line)."""
     rows = {}
-    for num_shards, popularity in runs:
+    for num_shards, popularity, users in runs:
         seed = 40 + (popularity == "zipf")   # phase 8's seeds
         rows[(num_shards, popularity)] = row = asyncio.run(
-            sharded_run(popularity, seed, shape, num_shards))
+            sharded_run(popularity, seed, shape if users is None
+                        else dict(shape, users=users), num_shards))
         host = broker_rows.get(("host", popularity))
-        if host is not None:
+        if users is not None:
+            row["cut"] = (f"{users} of phase 8's {shape['users']} users, "
+                          "for the script's time limit")
+        elif host is not None:
             row["host_msgs_per_s"] = host["delivered_msgs_per_s"]
             row["over_host"] = (row["delivered_msgs_per_s"]
                                 / host["delivered_msgs_per_s"])
@@ -4459,7 +4494,8 @@ def phase_durable(device, broker_rows: dict) -> int:
 # (b): 1024 consensus nodes over two brokers, 8 views; (c): 4 soak packs of
 # 255 clients on 8 topics (1020 users and the publisher fill the binary's
 # 1024 plane slots), 64 sequenced 512 B broadcasts a topic in 8 waves, and
-# 2 storm packs of 128 clients x 250 reconnect cycles
+# storm packs of 128 clients x 250 reconnect cycles (phase 16 runs one of
+# the 2 for the script's time limit)
 TOOLING = dict(runner_duration=10, nodes=1024, views=8, view_timeout_s=30.0,
                consensus_slots=1024, packs=4, pack_clients=255, topics=8,
                per_topic=64, payload=512, waves=8, wave_gap_s=0.05,
@@ -4641,7 +4677,8 @@ async def consensus_run(impl: str, shape: dict = TOOLING,
 
 
 async def soak_run(label: str, shape: dict, plane: bool,
-                   shards: int = 1, device=None) -> dict:
+                   shards: int = 1, device=None, io_impl=None, pump=None,
+                   storm_packs=None) -> dict:
     """Phase 16 (c), one deployment: a marshal and a broker (``plane``:
     ``--device-plane`` at the binary's defaults on the card; else
     ``--shards``) as processes on a fresh discovery file, plain TCP users;
@@ -4651,13 +4688,24 @@ async def soak_run(label: str, shape: dict, plane: bool,
     Every pack ends with no gap, no reorder, no hard reconnect and every
     client's full count. With a plane (on ``device``, the binary's CUDA
     default unless named): its ``/metrics`` routed count and its exit
-    line's launches, then the storm packs against it."""
+    line's launches (every busy step egressed through the native
+    encoder), then ``storm_packs`` storm packs against it (default
+    ``shape["storm_packs"]``; 0: none).
+
+    Phase 17 runs it with ``io_impl`` (``--io-impl`` for the broker and
+    the marshal, ``PUSHCDN_IO_IMPL`` for the packs; the publisher here
+    stays on asyncio) and ``pump`` (``--pump`` for a plane-less broker):
+    with ``uring`` the broker's ``/metrics`` must read the engine in use
+    and its io_uring_enter timings; with ``pump`` frames under
+    ``cdn_route_batch_frames{path="pump"}``; a plane-less broker on
+    asyncio routes under ``path="cutthrough"``."""
     from pushcdn_tpu_torch.client import Client, ClientConfig
     from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
     from pushcdn_tpu_torch.proto.transport import Tcp
     from pushcdn_tpu_torch.testing.packs import Pack, publish_sequenced
 
-    tag = f"tooling-{'plane' if plane else f'shards{shards}'}-{os.getpid()}"
+    tag = (f"tooling-{'plane' if plane else f'shards{shards}'}"
+           f"-{io_impl or 'default'}-{pump or 'nopump'}-{os.getpid()}")
     db = os.path.join(HERE, ".build", f"{tag}.sqlite")
     for suffix in ("", "-wal", "-shm"):
         if os.path.exists(db + suffix):
@@ -4673,6 +4721,9 @@ async def soak_run(label: str, shape: dict, plane: bool,
                * shape["pack_clients"], topics=shape["topics"],
                broadcasts=shape["topics"] * shape["per_topic"],
                payload_bytes=shape["payload"])
+    io_args = ["--io-impl", io_impl] if io_impl else []
+    if io_impl:
+        row.update(io_impl=io_impl, pump=pump or "off")
     try:
         kids.spawn("broker", "--discovery-endpoint", db,
                    "--public-advertise-endpoint", f"127.0.0.1:{pub}",
@@ -4683,11 +4734,12 @@ async def soak_run(label: str, shape: dict, plane: bool,
                    "--user-transport", "tcp",
                    *(["--device-plane"] if plane
                      else ["--shards", str(shards)]),
-                   *(["--device", str(device)] if device else []))
+                   *(["--device", str(device)] if device else []),
+                   *io_args, *(["--pump", pump] if pump else []))
         kids.spawn("marshal", "--discovery-endpoint", db,
                    "--bind-endpoint", f"127.0.0.1:{marshal}",
                    "--metrics-bind-endpoint", f"127.0.0.1:{marshal_metrics}",
-                   "--user-transport", "tcp")
+                   "--user-transport", "tcp", *io_args)
         serving = await kids.wait_for_line("broker", "broker serving", label,
                                            timeout=180, count=shards)
         try:
@@ -4706,7 +4758,8 @@ async def soak_run(label: str, shape: dict, plane: bool,
                 endpoint, "soak", shape["pack_clients"], 100_000 + 1_000 * k,
                 "--report-every-s", "5", "--settle-s", "0.5",
                 topics=shape["topics"],
-                log_path=os.path.join(HERE, ".build", f"{tag}-pack{k}.log")))
+                log_path=os.path.join(HERE, ".build", f"{tag}-pack{k}.log"),
+                env={"PUSHCDN_IO_IMPL": io_impl} if io_impl else None))
         for pack in packs:
             await asyncio.to_thread(pack.wait, "ready", 120)
         row["connect_s"] = time.perf_counter() - t0
@@ -4763,12 +4816,40 @@ async def soak_run(label: str, shape: dict, plane: bool,
         status, text = await asyncio.to_thread(http_get, broker_metrics,
                                                "/metrics")
         check(status == 200, f"{label}: /metrics answered {status}")
+        if io_impl:
+            impls = {impl: metric_sum(text, "cdn_io_impl", impl=impl)
+                     for impl in ("uring", "asyncio")}
+            check(impls[io_impl] == 1 and sum(impls.values()) == 1,
+                  f"{label}: /metrics reads cdn_io_impl {impls}")
+        if io_impl == "uring":
+            enters = metric_sum(text, "cdn_uring_chain_seconds_count",
+                                stat="enter")
+            check(enters > 0, f"{label}: /metrics shows no io_uring_enter "
+                  "timing (cdn_uring_chain_seconds_count)")
+            row["io_uring_enters"] = enters
+        if io_impl and not plane:
+            paths = {path: metric_sum(text, "cdn_route_batch_frames",
+                                      path=path)
+                     for path in ("pump", "cutthrough", "residual",
+                                  "scalar")}
+            row["route_frames"] = paths
+            if pump == "auto":
+                check(paths["pump"] > 0, f"{label}: no frame under "
+                      f"cdn_route_batch_frames{{path=\"pump\"}}: {paths}")
+            else:
+                check(paths["pump"] == 0 and paths["cutthrough"] > 0,
+                      f"{label}: frames by path {paths}")
         if plane:
             routed = metric(text, "cdn_device_messages_routed")
             check(routed >= row["broadcasts"], f"{label}: /metrics shows "
                   f"cdn_device_messages_routed {routed}")
             row["messages_routed"] = routed
-            row["storm"] = await storm(endpoint, shape, tag)
+            n_storm = (shape["storm_packs"] if storm_packs is None
+                       else storm_packs)
+            if n_storm:
+                row["storm"] = await storm(endpoint,
+                                           dict(shape, storm_packs=n_storm),
+                                           tag)
         kids.terminate(label)
         if plane:
             done = log_fields(kids.logs["broker"], "device plane exit")
@@ -4777,6 +4858,9 @@ async def soak_run(label: str, shape: dict, plane: bool,
             check(traffic["delivery_matrix_cuda"] > 0, f"{label}: the broker "
                   "never launched delivery_matrix_cuda after its warm-up")
             check(not done["disabled"], f"{label}: the plane disabled itself")
+            check(done["native_egress_steps"] == done["busy_steps"] > 0,
+                  f"{label}: {done['native_egress_steps']} of "
+                  f"{done['busy_steps']} busy steps egressed natively")
             row.update(warmup_launches=warm, steps=done["steps"],
                        busy_steps=done["busy_steps"],
                        delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
@@ -4856,7 +4940,8 @@ def phase_tooling(cluster_rows: dict, shape: dict = TOOLING,
     seconds["b"] = time.perf_counter() - t
     t = time.perf_counter()
     plane = asyncio.run(soak_run("tooling soak plane", shape, plane=True,
-                                 device=device))
+                                 device=device, storm_packs=1))
+    plane["cut"] = "a storm of 1 pack, not 2, for the script's time limit"
     add(plane)
     sharded = asyncio.run(soak_run("tooling soak --shards 2", shape,
                                    plane=False, shards=2))
@@ -4879,6 +4964,271 @@ def phase_tooling(cluster_rows: dict, shape: dict = TOOLING,
           "launched on phase 16's traffic")
     check(launches["ragged"] > 0, "tooling: ragged_delivery_cuda never "
           "launched on phase 16's traffic")
+    return launches, plane
+
+
+# ---------------------------------------------------------------------------
+# 17. the host I/O engines under the planes
+# ---------------------------------------------------------------------------
+
+QUIC_RUN = dict(clients=256, topics=8, per_topic=64, payload=512, waves=8,
+                wave_gap_s=0.05, connect_concurrency=64)
+
+
+def uring_probe() -> str:
+    """The port's io_uring probe on this host: ``allowed`` or ``denied:
+    <errno name>``. The shim must build, and only a kernel that answers
+    ENOSYS or EPERM may deny it; anything else fails the run."""
+    import errno
+    import platform
+
+    from pushcdn_tpu_torch import native
+    from pushcdn_tpu_torch.native import uring as nuring
+    check(nuring.loaded(), "io: the io_uring shim did not build: "
+          f"{native.build_errors().get('io_uring')}")
+    cap = nuring.probe()
+    if cap < 0:
+        name = nuring.probe_errname()
+        check(-cap in (errno.ENOSYS, errno.EPERM),
+              f"io: the io_uring probe failed with {name} ({cap})")
+        verdict = f"denied: {name}"
+    else:
+        check(cap & 1, f"io: probe bitmask {cap} lacks the usable bit")
+        verdict = "allowed"
+    emit("io", io_uring=verdict, probe=cap, kernel=platform.release(),
+         zerocopy=nuring.zerocopy_supported())
+    return verdict
+
+
+def quic_payload(seq: int, size: int) -> bytes:
+    """A sequenced broadcast that carries its publish time: a 4-byte
+    big-endian sequence number, the publisher's ``perf_counter_ns``, then
+    padding to ``size``."""
+    head = seq.to_bytes(4, "big") + time.perf_counter_ns().to_bytes(8, "big")
+    return head + b"\x00" * max(0, size - len(head))
+
+
+async def quic_run(shape: dict = QUIC_RUN, device=None) -> dict:
+    """Phase 17 (c): the ragged plane with its users on QUIC."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import Quic
+
+    label = "io quic ragged"
+    tag = f"io-quic-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    C, T, per = shape["clients"], shape["topics"], shape["per_topic"]
+    pub, priv, marshal, marshal_metrics = ports = free_ports(4)
+    broker_metrics = metrics_port(0, ports)
+    kids = Children(tag)
+    clients = []
+    publisher = None
+    drains = []
+    row = dict(run="quic", broker="--device-plane", transport="quic",
+               delivery_impl="ragged", clients=C, topics=T,
+               broadcasts=T * per, payload_bytes=shape["payload"])
+    try:
+        kids.spawn("broker", "--discovery-endpoint", db,
+                   "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                   "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                   "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                   "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{broker_metrics}",
+                   "--user-transport", "quic", "--broker-transport", "tcp",
+                   "--device-plane",
+                   *(["--device", str(device)] if device else []),
+                   env={"PUSHCDN_DELIVERY_IMPL": "ragged"})
+        kids.spawn("marshal", "--discovery-endpoint", db,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{marshal_metrics}",
+                   "--user-transport", "quic")
+        serving = await kids.wait_for_line("broker", "broker serving", label,
+                                           timeout=180)
+        try:
+            async with asyncio.timeout(60):   # the broker registered
+                while (await asyncio.to_thread(http_get, marshal_metrics,
+                                               "/readyz") or (0,))[0] != 200:
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: the marshal was not ready in 60 s:"
+                               f"\n{log_tail(kids.logs['marshal'])}") from None
+        endpoint = f"127.0.0.1:{marshal}"
+        pairs = [DEFAULT_SCHEME.generate_keypair(seed=300_000 + c)
+                 for c in range(C)]
+        clients = [Client(ClientConfig(
+            marshal_endpoint=endpoint, keypair=kp, protocol=Quic,
+            subscribed_topics={c % T})) for c, kp in enumerate(pairs)]
+        gate = asyncio.Semaphore(shape["connect_concurrency"])
+
+        async def connect(client):
+            async with gate:
+                await client.ensure_initialized()
+
+        t0 = time.perf_counter()
+        try:
+            async with asyncio.timeout(120):
+                await asyncio.gather(*(connect(c) for c in clients))
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: the QUIC clients did not all "
+                               "connect in 120 s") from None
+        row["connect_s"] = time.perf_counter() - t0
+        publisher = Client(ClientConfig(
+            marshal_endpoint=endpoint,
+            keypair=DEFAULT_SCHEME.generate_keypair(seed=399_999),
+            protocol=Quic, subscribed_topics=set()))
+        async with asyncio.timeout(60):
+            await publisher.ensure_initialized()
+        kids.check_alive(label)
+
+        seqs = [[] for _ in range(C)]
+        lat_ns = []
+        directs = [0] * C
+        done_at = [0.0]
+        want = C * per
+
+        async def drain(c):
+            client = clients[c]
+            while True:
+                for m in await client.receive_messages():
+                    now = time.perf_counter_ns()
+                    body = bytes(m.message)
+                    if isinstance(m, Broadcast):
+                        seqs[c].append(int.from_bytes(body[:4], "big"))
+                        lat_ns.append(now - int.from_bytes(body[4:12], "big"))
+                        if len(lat_ns) == want:
+                            done_at[0] = time.perf_counter()
+                    elif isinstance(m, Direct) and body == b"barrier":
+                        directs[c] += 1
+
+        drains = [asyncio.create_task(drain(c)) for c in range(C)]
+        step = per // shape["waves"]
+        t0 = time.perf_counter()
+        for w in range(shape["waves"]):
+            if w:
+                await asyncio.sleep(shape["wave_gap_s"])
+            for seq in range(w * step, (w + 1) * step):
+                for t in range(T):
+                    await publisher.send_broadcast_message(
+                        [t], quic_payload(seq, shape["payload"]))
+        try:
+            async with asyncio.timeout(60):
+                while len(lat_ns) < want:
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.02)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {len(lat_ns)} of {want} "
+                               "deliveries in 60 s") from None
+        busy_s = done_at[0] - t0
+        await asyncio.gather(*(
+            client.send_direct_message(kp.public_key, b"barrier")
+            for client, kp in zip(clients, pairs)))
+        try:
+            async with asyncio.timeout(30):
+                while sum(directs) < C:
+                    await asyncio.sleep(0.02)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {sum(directs)} of {C} barrier "
+                               "directs came back in 30 s") from None
+        for c in range(C):
+            check(seqs[c] == list(range(per)),
+                  f"{label}: client {c} got {len(seqs[c])} broadcasts, "
+                  f"in order: {seqs[c] == sorted(seqs[c])}")
+            check(directs[c] == 1, f"{label}: client {c} got "
+                  f"{directs[c]} barrier directs")
+        status, text = await asyncio.to_thread(http_get, broker_metrics,
+                                               "/metrics")
+        check(status == 200, f"{label}: /metrics answered {status}")
+        routed = metric(text, "cdn_device_messages_routed")
+        check(routed >= row["broadcasts"], f"{label}: /metrics shows "
+              f"cdn_device_messages_routed {routed}")
+        for t in drains:
+            t.cancel()
+        for client in clients:
+            client.close()
+        publisher.close()
+        kids.terminate(label)
+        done = log_fields(kids.logs["broker"], "device plane exit")
+        warm = serving["launches"]
+        traffic = {k: v - warm[k] for k, v in done["launches"].items()}
+        check(traffic["ragged_delivery_cuda"] > 0, f"{label}: the broker "
+              "never launched ragged_delivery_cuda after its warm-up")
+        check(not done["disabled"], f"{label}: the plane disabled itself")
+        row.update(deliveries=want, busy_s=busy_s,
+                   delivered_msgs_per_s=want / busy_s,
+                   **percentiles_ms(lat_ns), messages_routed=routed,
+                   warmup_launches=warm, steps=done["steps"],
+                   busy_steps=done["busy_steps"],
+                   delivery_matrix_cuda=traffic["delivery_matrix_cuda"],
+                   ragged_delivery_cuda=traffic["ragged_delivery_cuda"])
+        return row
+    finally:
+        for t in drains:
+            t.cancel()
+        if publisher is not None:
+            publisher.close()
+        for client in clients:
+            client.close()
+        kids.kill()
+
+
+def phase_io(plane_row: dict, shape: dict = TOOLING,
+             quic: dict = QUIC_RUN, device=None) -> dict:
+    """Phase 17: the io_uring probe, then (a) the dense plane over
+    io_uring, (b) a plane-less broker over io_uring with the fused pump
+    and over asyncio, (c) the ragged plane over QUIC; ``plane_row`` is
+    phase 16 (c)'s asyncio plane run, reported beside (a). One ``io`` line
+    per run; returns each kernel's launches over the phase's traffic."""
+    launches = {"dense": 0, "ragged": 0}
+    seconds = {}
+    verdict = uring_probe()
+    allowed = verdict == "allowed"
+    rate = {}
+    t = time.perf_counter()
+    if allowed:
+        a = asyncio.run(soak_run("io soak plane uring", shape, plane=True,
+                                 device=device, io_impl="uring",
+                                 storm_packs=0))
+        launches["dense"] += a["delivery_matrix_cuda"]
+        rate["plane_uring"] = a["delivered_msgs_per_s"]
+        emit("io", **a, phase16_plane_asyncio_msgs_per_s=plane_row[
+            "delivered_msgs_per_s"], uring_over_phase16_asyncio=a[
+            "delivered_msgs_per_s"] / plane_row["delivered_msgs_per_s"])
+    seconds["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if allowed:
+        b = asyncio.run(soak_run("io soak host uring pump", shape,
+                                 plane=False, io_impl="uring", pump="auto"))
+        rate["host_uring_pump"] = b["delivered_msgs_per_s"]
+        emit("io", **b)
+    b = asyncio.run(soak_run("io soak host asyncio", shape, plane=False,
+                             io_impl="asyncio"))
+    rate["host_asyncio"] = b["delivered_msgs_per_s"]
+    emit("io", **b)
+    seconds["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    c = asyncio.run(quic_run(quic, device))
+    launches["ragged"] += c["ragged_delivery_cuda"]
+    launches["dense"] += c["delivery_matrix_cuda"]
+    emit("io", **c)
+    seconds["c"] = time.perf_counter() - t
+    # phase 16 (c)'s plane broker (asyncio) beside the plane-less one
+    ratios = {"phase16_plane_asyncio_over_host_asyncio":
+              plane_row["delivered_msgs_per_s"] / rate["host_asyncio"]}
+    if "plane_uring" in rate:
+        ratios.update({f"plane_uring_over_{k}": rate["plane_uring"] / v
+                       for k, v in rate.items() if k != "plane_uring"})
+    emit("io", run="phase 17", io_uring=verdict, msgs_per_s=rate, **ratios,
+         seconds=seconds, total_s=sum(seconds.values()))
+    if allowed:
+        check(launches["dense"] > 0, "io: delivery_matrix_cuda never "
+              "launched on phase 17's traffic")
+    check(launches["ragged"] > 0, "io: ragged_delivery_cuda never launched "
+          "on phase 17's traffic")
     return launches
 
 
@@ -5162,18 +5512,26 @@ def main() -> int:
     # 16. the runner, the consensus workload and the client packs on the
     # card; the runner's brokers', the consensus clusters' and the soak
     # broker's launches over their traffic join the kernel line's
-    tooling = phase_tooling(cluster_rows)
+    tooling, soak_plane = phase_tooling(cluster_rows)
     launches["dense"] += tooling["dense"]
     launches["ragged"] += tooling["ragged"]
     lap(16)
+    # 17. the host I/O engines under the planes: the dense plane over
+    # io_uring, the plane-less broker with and without the fused pump, the
+    # ragged plane over QUIC; the plane brokers' launches over their
+    # traffic join the kernel line's
+    io = phase_io(soak_plane)
+    launches["dense"] += io["dense"]
+    launches["ragged"] += io["ragged"]
+    lap(17)
     emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
          total=sum(laps.values()))
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's, the
     # broker processes' of the cluster phase, the mesh-broker group runs',
-    # the multi-host phase's worker and broker processes', phase 15's and
-    # phase 16's
+    # the multi-host phase's worker and broker processes', phase 15's,
+    # phase 16's and phase 17's
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

@@ -22,12 +22,17 @@ NVIDIA Hopper card. It keeps the JAX package's module layout and names:
   ``MultiHostBrokerGroup`` every process steps in lockstep (its workers
   and the two-process deployment in ``testing.two_host``)
 - ``broker.broker``, ``broker.tasks``, ``broker.test_harness`` and
-  ``proto`` — the single-broker host data path over the Memory, TCP and
-  TCP+TLS transports, copied from the JAX package
+  ``proto`` — the single-broker host data path over the Memory, TCP,
+  TCP+TLS and QUIC transports, TCP on asyncio or on the io_uring engine
+  (``proto.transport.uring``) with the fused native pump
+  (``proto.transport.pump``), copied from the JAX package
 - ``native`` — the port's own copies of the JAX package's C++ host
   routines (ring packer, wire scanner and encoder, the planes' egress
   encoder, the batch decoder), built with ``g++`` at first use; and
-  ``native.routeplan``, the cut-through route plan's binding
+  ``native.routeplan``, the cut-through route plan's binding,
+  ``native.uring`` (the io_uring shim), ``native.pump`` (the fused pump,
+  built from the port's ``pump.cpp`` with the two sources it includes)
+  and ``native.syscount`` (the ``LD_PRELOAD`` syscall interposer)
 - ``broker.tasks.cutthrough`` — the cut-through routing plane: a broker
   without a device plane routes whole received chunks with one
   ``RoutePlanner.plan`` call against its incrementally kept route table

@@ -49,10 +49,12 @@ its own shard's users when the supervisor forwards the signal), and logs
 one ``drain re-home`` line. Admission control and the durable topics'
 retention rings follow their ``PUSHCDN_MAX_CONNS_*``,
 ``PUSHCDN_SUBSCRIBE_*``, ``PUSHCDN_SHED_READY_S`` and
-``PUSHCDN_RETAIN_*`` knobs. This package has no io_uring engine: an
-explicit ``PUSHCDN_IO_IMPL=uring`` (or ``PUSHCDN_IO_URING=1``) is refused
-at start, ``auto`` warns once and runs asyncio. Not copied yet
-(ROADMAP.md, Queue A): the io_uring and pump selectors.
+``PUSHCDN_RETAIN_*`` knobs. ``--io-impl`` (or ``PUSHCDN_IO_IMPL``) puts
+the tcp links on the io_uring engine: ``uring`` insists and fails naming
+the kernel's errno where io_uring is denied, ``auto`` demotes to asyncio
+with one warning. ``--pump auto`` lets the fused native pump route a
+plane-less broker's chunks on that engine. With a device plane, the
+plane's egress streams leave through the same engine.
 """
 
 from __future__ import annotations
@@ -66,7 +68,10 @@ import statistics
 import sys
 
 from pushcdn_tpu_torch.bin.common import (
-    check_io_impl,
+    add_io_impl_flag,
+    add_pump_flag,
+    apply_io_impl,
+    apply_pump,
     drain_grace_s,
     init_logging,
     install_drain_signals,
@@ -155,6 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "attaches to --mesh-shard (default: the first "
                         "local shard)")
     p.add_argument("--mesh-shard", type=int, default=None)
+    add_io_impl_flag(p)
+    add_pump_flag(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
@@ -491,7 +498,8 @@ async def amain(args: argparse.Namespace) -> None:
 def main() -> None:
     args = build_parser().parse_args()
     init_logging(args.verbose)
-    check_io_impl()
+    apply_io_impl(args)
+    apply_pump(args)
     tune_gc()
     try:
         asyncio.run(amain(args))

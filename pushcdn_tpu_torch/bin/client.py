@@ -2,8 +2,8 @@
 every 5 s, send a direct message to ourselves and a broadcast, and log
 everything received.
 
-A copy of ``pushcdn_tpu.bin.client`` without the ``--io-impl`` flag: the
-io_uring engine is not copied yet."""
+The port's copy of ``pushcdn_tpu.bin.client``; ``--io-impl`` puts a tcp
+client on the io_uring engine."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import asyncio
 import logging
 
 from pushcdn_tpu_torch.bin.common import (
+    add_io_impl_flag,
+    apply_io_impl,
     init_logging,
     keypair_from_seed,
     scheme_by_name,
@@ -40,6 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-bind-endpoint", default=None,
                    help="serve /metrics + /healthz + /readyz (readiness = "
                         "live broker link)")
+    add_io_impl_flag(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
@@ -110,6 +113,7 @@ async def amain(args: argparse.Namespace) -> None:
 def main() -> None:
     args = build_parser().parse_args()
     init_logging(args.verbose)
+    apply_io_impl(args)
     try:
         asyncio.run(amain(args))
     except KeyboardInterrupt:

@@ -3,11 +3,10 @@ reference's RUST_LOG_FORMAT=json switch, cdn-broker/src/binaries/broker.rs:80-91
 transport/scheme lookup by name, seeded keys.
 
 A copy of ``pushcdn_tpu.bin.common`` cut to what the port has: the
-transports are ``memory``, ``tcp`` and ``tcp+tls`` (no QUIC), the scheme is
-``ed25519`` (no BLS), discovery is the embedded SQLite file (no Redis), and
-the io_uring and fused-pump selectors are gone with their engines
-(ROADMAP.md, Queue A). ``check_io_impl`` answers the io_uring knobs the
-reference reads, so none of them is ignored silently.
+transports are ``memory``, ``tcp``, ``tcp+tls`` and ``quic``, the scheme is
+``ed25519`` (no BLS), and discovery is the embedded SQLite file (no Redis;
+ROADMAP.md, Queue A). ``--io-impl`` and ``--pump`` select the io_uring
+engine and the fused native pump as the reference's flags do.
 """
 
 from __future__ import annotations
@@ -30,8 +29,9 @@ from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
 from pushcdn_tpu_torch.proto.topic import TopicSpace
 from pushcdn_tpu_torch.proto.transport import Memory, Tcp, TcpTls
 from pushcdn_tpu_torch.proto.transport.base import Protocol
+from pushcdn_tpu_torch.proto.transport.quic import Quic
 
-TRANSPORTS = {"tcp": Tcp, "tcp+tls": TcpTls, "memory": Memory}
+TRANSPORTS = {"tcp": Tcp, "tcp+tls": TcpTls, "quic": Quic, "memory": Memory}
 SCHEMES = {"ed25519": Ed25519Scheme}
 
 
@@ -72,38 +72,45 @@ def init_logging(verbosity: int = 0) -> None:
     logging.basicConfig(level=level, handlers=[handler], force=True)
 
 
-IO_IMPLS = ("auto", "uring", "asyncio")
-_IO_LOG = logging.getLogger("pushcdn.io")
+def add_io_impl_flag(p) -> None:
+    """The host data-plane selector, shared by every binary: ``auto``
+    probes the kernel once and demotes honestly, ``uring`` insists (and
+    fails fast when denied), ``asyncio`` is the default this round."""
+    from pushcdn_tpu_torch.proto.transport.uring import IO_IMPLS
+    p.add_argument("--io-impl", choices=IO_IMPLS, default=None,
+                   help="host I/O engine for tcp links: auto (io_uring "
+                        "when the kernel allows, else asyncio), uring "
+                        "(insist), asyncio (default; also inherited via "
+                        "PUSHCDN_IO_IMPL)")
 
 
-def configured_io_impl() -> str:
-    """The requested io impl, read as the reference reads it:
-    ``PUSHCDN_IO_IMPL`` (auto|uring|asyncio), else the legacy
-    ``PUSHCDN_IO_URING`` (1/true/yes/uring, or auto), else ``asyncio``."""
-    v = os.environ.get("PUSHCDN_IO_IMPL", "").strip().lower()
-    if v in IO_IMPLS:
-        return v
-    u = os.environ.get("PUSHCDN_IO_URING", "").strip().lower()
-    if u in ("1", "true", "yes", "uring"):
-        return "uring"
-    if u == "auto":
-        return "auto"
-    return "asyncio"
+def apply_io_impl(args) -> None:
+    """Write the selection into PUSHCDN_IO_IMPL so THIS process and its
+    children (shard workers, spawned helpers) resolve the same plane."""
+    if getattr(args, "io_impl", None):
+        from pushcdn_tpu_torch.proto.transport.uring import set_io_impl
+        set_io_impl(args.io_impl)
 
 
-def check_io_impl() -> None:
-    """Answer the io knobs at a binary's start. This package has no
-    io_uring engine (ROADMAP.md, Queue A item 6): an explicit ``uring`` is
-    refused, as the reference refuses it where the kernel has no io_uring;
-    ``auto`` demotes to asyncio with one warning; ``asyncio`` is silent."""
-    impl = configured_io_impl()
-    if impl == "uring":
-        raise SystemExit(
-            "PUSHCDN_IO_IMPL=uring: this package has no io_uring engine "
-            "yet (ROADMAP.md, Queue A item 6); use asyncio or auto")
-    if impl == "auto":
-        _IO_LOG.warning("io_uring engine not in this package (ROADMAP.md, "
-                        "Queue A item 6): io impl auto runs asyncio")
+def add_pump_flag(p) -> None:
+    """The fused data-plane pump selector (broker-side):
+    ``auto`` engages the native recv→plan→send pump whenever BOTH the
+    io_uring engine and the native route planner are live (demoting
+    loudly once otherwise), ``off`` disables it unconditionally."""
+    p.add_argument("--pump", choices=("auto", "off"), default=None,
+                   help="fused native data-plane pump: auto (engage when "
+                        "io_uring + the native planner are both live), "
+                        "off (always per-chunk Python routing; also "
+                        "inherited via PUSHCDN_PUMP)")
+
+
+def apply_pump(args) -> None:
+    """Write the selection into PUSHCDN_PUMP so shard workers inherit
+    the same composition decision."""
+    if getattr(args, "pump", None):
+        from pushcdn_tpu_torch.proto.transport.pump import set_pump_impl
+        os.environ["PUSHCDN_PUMP"] = args.pump
+        set_pump_impl(args.pump)
 
 
 def drain_grace_s() -> float:

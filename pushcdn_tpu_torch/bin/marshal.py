@@ -7,7 +7,8 @@ import argparse
 import asyncio
 
 from pushcdn_tpu_torch.bin.common import (
-    check_io_impl,
+    add_io_impl_flag,
+    apply_io_impl,
     drain_grace_s,
     init_logging,
     install_drain_signals,
@@ -31,6 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--global-permits", action="store_true")
     p.add_argument("--scheme", default="ed25519",
                    help="signature scheme: ed25519")
+    add_io_impl_flag(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
@@ -63,7 +65,7 @@ async def amain(args: argparse.Namespace) -> None:
 def main() -> None:
     args = build_parser().parse_args()
     init_logging(args.verbose)
-    check_io_impl()
+    apply_io_impl(args)
     tune_gc()
     try:
         asyncio.run(amain(args))

@@ -24,10 +24,11 @@ This module closes that gap:
   behavior is identical even for mixes like ``[Subscribe(t),
   Broadcast(t)]`` landing in one chunk.
 
-The port's copy of ``pushcdn_tpu.broker.tasks.cutthrough`` without the
-fused io_uring pump, which this package does not have yet: the plan's
-fan-out to this worker's own peers always goes through the per-peer
-writers. On a broker of N worker shards (``broker.sharding``) the pairs
+The port's copy of ``pushcdn_tpu.broker.tasks.cutthrough``. Where this
+loop runs the io_uring engine and ``PUSHCDN_PUMP`` is not ``off``, the
+fused native pump (``proto.transport.pump``) plans a chunk and queues its
+linked sends in one C call; the pairs it hands back take the per-peer
+writers as before. On a broker of N worker shards (``broker.sharding``) the pairs
 bound for a sibling shard's user or mesh link are collected per shard and
 written to the shared-memory handoff ring as wire bytes with per-peer
 index lists (``ShardRuntime.handoff_chunk``).
@@ -241,7 +242,7 @@ class RouteState:
                  "deltas_applied", "rebuild_counts", "last_delta_apply_s",
                  "_applies_since_compact_check", "_rebuild_reason",
                  "_frames_since_rebuild", "_skip_rebuilds",
-                 "built_at")
+                 "built_at", "_pump_state", "_pump_off")
 
     def __init__(self, broker: "Broker", planner):
         self.broker = broker
@@ -279,6 +280,12 @@ class RouteState:
         self._frames_since_rebuild = 1 << 30
         self._skip_rebuilds = 0
         self.built_at: Optional[float] = None  # monotonic, last rebuild
+        # fused data-plane pump: PumpState on this loop's
+        # uring engine, or None. _pump_off latches when the composition
+        # can never engage (env off / asyncio io impl / lib missing);
+        # a transient None (engine not up yet) keeps retrying.
+        self._pump_state = None
+        self._pump_off = False
 
     def summary(self) -> dict:
         """Operator-facing snapshot state for ``/debug/topology``."""
@@ -303,8 +310,44 @@ class RouteState:
                           "cursor": self.log_seq},
             "rebuilds": dict(self.rebuild_counts),
             "index": self.planner.stats() if self.usable else None,
-            "pump": None,  # no fused pump in this package
+            "pump": (self._pump_state.summary()
+                     if self._pump_state is not None
+                     and not self._pump_state.closed else None),
         }
+
+    def _get_pump(self):
+        """The fused pump for this loop's uring engine, engaging lazily
+        (the engine exists only once a uring transport served a
+        connection). Returns None when the composition cannot engage —
+        every such call is counted by the pump module, never silent."""
+        ps = self._pump_state
+        if ps is not None:
+            if not ps.closed:
+                return ps
+            self._pump_state = None  # engine died; it may come back
+        if self._pump_off:
+            return None
+        from pushcdn_tpu_torch.proto.transport import pump as pump_mod
+        ok, _why = pump_mod.resolve_pump()
+        if not ok:
+            # permanent for this process config: env off, io impl not
+            # uring, or a native layer failed to build/probe
+            self._pump_off = True
+            return None
+        from pushcdn_tpu_torch.proto.transport import uring as umod
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return None
+        ent = umod.UringEngine._engines.get(id(loop))
+        eng = ent[1] if ent is not None else None
+        if eng is None or eng.closed:
+            return None  # no engine on this loop (yet): plain cut-through
+        ps = pump_mod.PumpState.create(eng, self.broker, owner=self)
+        self._pump_state = ps  # None if another broker owns the engine
+        if ps is None:
+            self._pump_off = True
+        return ps
 
     # -- snapshot ------------------------------------------------------------
 
@@ -451,7 +494,7 @@ class RouteState:
             np.asarray(owners, np.int32))
         if self.usable:
             # mirror the flow-class taxonomy into the native table so the
-            # plan classes frames exactly like the
+            # plan (and the fused pump) classes frames exactly like the
             # scalar senders; deployment config, so every rebuild restores
             # the same map
             self.planner.set_classes(flowclass.active_table())
@@ -1011,8 +1054,18 @@ class RouteState:
                         sender_id, chunk, offs, lens, pos, is_user,
                         egress, interest_cache, conn)
                 t0 = time.perf_counter()
-                consumed, stop, peers, frames = planner.plan(
-                    buf, offs, lens, pos, mode)
+                pump = self._get_pump()
+                if pump is not None:
+                    # fused path: plan + native linked send SQEs in ONE C
+                    # call; escalated (peer, frame) pairs come back and
+                    # ride the normal _send_plan below
+                    consumed, stop, peers, frames, pumped = \
+                        pump.plan_and_pump(self, chunk, buf, offs, lens,
+                                           pos, mode)
+                else:
+                    pumped = 0
+                    consumed, stop, peers, frames = planner.plan(
+                        buf, offs, lens, pos, mode)
                 # one perf_counter pair + locked add per CHUNK-level plan
                 # call — the latency-attribution seam /metrics exposes as
                 # cdn_native_seconds{kernel="route_plan"}
@@ -1020,11 +1073,16 @@ class RouteState:
                     time.perf_counter() - t0)
                 if consumed:
                     metrics_mod.ROUTE_BATCH_SIZE.observe(consumed)
-                    metrics_mod.ROUTE_CUTTHROUGH_FRAMES.inc(consumed)
+                    if pumped:
+                        metrics_mod.ROUTE_PUMP_FRAMES.inc(consumed)
+                    else:
+                        metrics_mod.ROUTE_CUTTHROUGH_FRAMES.inc(consumed)
                     self._frames_since_rebuild += consumed
                     # per-class ingress accounting off the plan's class
-                    # array (dir=out counts per pair in _send_plan below)
-                    fc = planner.frame_classes
+                    # array (pumped runs count their own dir=out in C;
+                    # residual pairs count in _send_plan below)
+                    fc = (pump.np_.frame_classes if pump is not None
+                          else planner.frame_classes)
                     _inc_class_counts(fc[pos:pos + consumed],
                                       lens[pos:pos + consumed],
                                       metrics_mod.CLASS_FRAMES_IN,

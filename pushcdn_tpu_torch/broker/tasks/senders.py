@@ -6,8 +6,7 @@ SURVEY.md §5 "failure *is* an I/O error").
 All senders take refcounted :class:`Bytes` frames and clone per recipient —
 fan-out shares one payload buffer (Arc-clone parity, handler.rs hot path).
 
-A copy of ``pushcdn_tpu.broker.tasks.senders`` without the fused pump's
-log tag (the port has no fused pump).
+The port's copy of ``pushcdn_tpu.broker.tasks.senders``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,24 @@ if TYPE_CHECKING:
     from pushcdn_tpu_torch.broker.broker import Broker
 
 logger = logging.getLogger("pushcdn.broker")
+
+
+def _pumped(connection) -> str:
+    """Failure-log tag for peers the fused pump (transport/pump.py) had
+    natively engaged: the removal an operator sees here is the Python
+    rediscovery of an error the pump already counted
+    (``cdn_pump_escalations{reason="peer_error"}``) — the tag makes the
+    two log/metric trails correlate."""
+    stream = getattr(connection, "_stream", None)
+    if getattr(stream, "_pump_binding", None) is not None:
+        return " [natively pumped peer]"
+    return ""
+
+# pre-encode shape bounds: the fast path covers fan-out batches of small
+# frames (the hot regime); anything bigger rides the writer's own
+# coalescer, which chunks large flushes per timeout window
+_PRE_ENCODE_MAX_FRAME = 64 * 1024
+_PRE_ENCODE_MAX_TOTAL = 1 << 20
 
 
 # pre-encode shape bounds: the fast path covers fan-out batches of small
@@ -80,8 +97,8 @@ async def try_send_to_user(broker: "Broker", public_key: bytes,
         return True
     except Exception as exc:
         clone.release()
-        logger.info("send to user %s failed (%r); removing",
-                    mnemonic(public_key), exc)
+        logger.info("send to user %s failed (%r)%s; removing",
+                    mnemonic(public_key), exc, _pumped(connection))
         broker.connections.remove_user(public_key, reason="send failed")
         broker.update_metrics()
         return False
@@ -114,8 +131,8 @@ def try_send_frames_to_user_nowait(broker: "Broker", public_key: bytes,
             connection.send_raw_many_nowait([raw.clone() for raw in raws])
         return len(raws)
     except Exception as exc:
-        logger.info("nowait send to user %s failed (%r); removing",
-                    mnemonic(public_key), exc)
+        logger.info("nowait send to user %s failed (%r)%s; removing",
+                    mnemonic(public_key), exc, _pumped(connection))
         broker.connections.remove_user(public_key, reason="send failed")
         broker.update_metrics()
         return 0
@@ -136,8 +153,8 @@ def try_send_encoded_to_user_nowait(broker: "Broker", public_key: bytes,
         connection.send_encoded_nowait(data, owner, nframes=nframes)
         return True
     except Exception as exc:
-        logger.info("encoded send to user %s failed (%r); removing",
-                    mnemonic(public_key), exc)
+        logger.info("encoded send to user %s failed (%r)%s; removing",
+                    mnemonic(public_key), exc, _pumped(connection))
         broker.connections.remove_user(public_key, reason="send failed")
         broker.update_metrics()
         return False

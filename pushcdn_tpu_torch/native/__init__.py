@@ -1,16 +1,20 @@
 """ctypes bindings for the host routines in C++ (``framing.cpp`` and
 ``pydecode.cpp`` beside this file): the ring packer, the wire scanner and
 encoder, the device plane's egress encoder and the batch decoder. The
-cut-through route plan (``route_plan.cpp``) binds in ``routeplan``.
+cut-through route plan (``route_plan.cpp``) binds in ``routeplan``, the
+io_uring shim (``io_uring.cpp``) in ``uring``, the fused pump
+(``pump.cpp``, which includes ``io_uring.cpp`` and ``route_plan.cpp``) in
+``pump`` and the syscall-counting interposer (``syscount.cpp``) in
+``syscount``.
 
 The port's own copy of ``pushcdn_tpu.native``: it builds from the sources
 in this directory and never from the JAX package's. These are host
 routines, not kernels on the card, so ``g++`` builds them (``-O3 -shared
 -fPIC``, plain C ABI through ctypes) at first use into
 ``.build/torch_native/`` at the repository root. Each library's file name
-carries a hash of its source and flags (and, for the CPython-API decoder,
-the interpreter's ``SOABI``), so an edited source is rebuilt and a stale
-library never loads; a build writes a per-process temporary file and
+carries a hash of its source, of the sources it includes, and of its
+flags (and, for the CPython-API decoder, the interpreter's ``SOABI``), so
+an edited source is rebuilt and a stale library never loads; a build writes a per-process temporary file and
 moves it into place, so processes building at the same moment do not
 race.
 
@@ -48,10 +52,18 @@ _tried = False
 _build_errors: dict = {}
 
 
+# sources that a library's translation unit #includes from this directory
+# (``-I`` on SRC_DIR): their bytes key the library's name too
+INCLUDES = {"pump": ("io_uring", "route_plan")}
+
+
 def library_path(name: str, extra_flags: tuple = (), tag: str = "") -> Path:
-    """Where ``<name>.cpp`` builds to: keyed by the source, the flags and
-    ``tag`` (the interpreter ABI for a CPython-API library)."""
+    """Where ``<name>.cpp`` builds to: keyed by the source, the sources it
+    includes (``INCLUDES``), the flags and ``tag`` (the interpreter ABI for
+    a CPython-API library)."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cpp").read_bytes())
+    for dep in INCLUDES.get(name, ()):
+        h.update((SRC_DIR / f"{dep}.cpp").read_bytes())
     h.update(" ".join(CXX_FLAGS + tuple(extra_flags)).encode())
     suffix = f"-{tag}" if tag else ""
     return BUILD_DIR / f"libpushcdn_{name}-{h.hexdigest()[:16]}{suffix}.so"
@@ -179,17 +191,24 @@ def _pydecode_abi() -> str:
 
 def library_paths() -> dict:
     """Where each of this package's libraries builds to, by source name."""
+    from pushcdn_tpu_torch.native import pump, syscount
     return {"framing": library_path("framing"),
             "pydecode": library_path("pydecode", _pydecode_flags(),
                                      _pydecode_abi()),
-            "route_plan": library_path("route_plan")}
+            "route_plan": library_path("route_plan"),
+            "io_uring": library_path("io_uring"),
+            "pump": library_path("pump", pump.FLAGS),
+            "syscount": library_path("syscount", syscount.FLAGS)}
 
 
 def build() -> dict:
-    """Build and load every library now (a no-op once loaded). Returns
-    their paths; raises with the compiler's output when any failed."""
-    from pushcdn_tpu_torch.native import routeplan
-    ok = [available(), pydecode() is not None, routeplan.available()]
+    """Build every library now and load all but the interposer, which
+    loads only by ``LD_PRELOAD`` (a no-op once loaded). Returns their
+    paths; raises with the compiler's output when any failed. Building
+    io_uring's library does not need the kernel to allow io_uring."""
+    from pushcdn_tpu_torch.native import pump, routeplan, syscount, uring
+    ok = [available(), pydecode() is not None, routeplan.available(),
+          uring.loaded(), pump.available(), syscount.build() is not None]
     if not all(ok):
         raise RuntimeError(f"native host routines failed to build: "
                            f"{build_errors()}")

@@ -1,9 +1,10 @@
 """Shared protocol layer: wire format, the memory transport, limiter,
 crypto, broker auth, discovery, config registry.
 
-A copy of ``pushcdn_tpu.proto`` cut to the single-broker data path over
-the Memory transport; the TCP, TLS, QUIC and io_uring transports, user
-and marshal auth, and Redis discovery are not copied yet.
+The port's copy of ``pushcdn_tpu.proto``: the wire format, the Memory,
+TCP, TCP+TLS and QUIC transports, the io_uring engine and the fused
+native pump, user and marshal auth, the embedded discovery store. Redis
+discovery and BLS keys are not copied yet (ROADMAP.md, Queue A).
 """
 
 MAX_MESSAGE_SIZE = (2**32 - 1) // 8

@@ -9,9 +9,13 @@ cdn-proto/src/connection/protocols/mod.rs:85-306). Implementations:
 - ``tcp`` — plain TCP with TCP_NODELAY (parity protocols/tcp.rs)
 - ``tcp_tls`` — TLS over TCP with the local/prod CA scheme (parity
   protocols/tcp_tls.rs)
+- ``quic`` — QUIC-class reliable stream over UDP: handshake, single
+  bootstrapped bidirectional stream, ACK/retransmit loss recovery, 5 s
+  keep-alive, 3 s graceful finish (parity protocols/quic.rs)
 
-The QUIC transport and the io_uring engine of ``pushcdn_tpu.proto
-.transport`` are not copied yet.
+``tcp`` runs on the asyncio engine or, with ``PUSHCDN_IO_IMPL=uring`` (or
+``auto`` where the kernel allows it), on the io_uring engine of
+``uring``; the fused native pump of ``pump`` rides that engine.
 
 The device data plane's inter-broker "transport" is NOT one of these: broker
 ↔ broker fan-out on the device is a collective between shards (see
@@ -25,5 +29,6 @@ from pushcdn_tpu_torch.proto.transport.base import (  # noqa: F401
     UnfinalizedConnection,
 )
 from pushcdn_tpu_torch.proto.transport.memory import Memory  # noqa: F401
+from pushcdn_tpu_torch.proto.transport.quic import Quic  # noqa: F401
 from pushcdn_tpu_torch.proto.transport.tcp import Tcp  # noqa: F401
 from pushcdn_tpu_torch.proto.transport.tcp_tls import TcpTls  # noqa: F401

@@ -4,8 +4,9 @@ Capability parity with cdn-proto/src/connection/protocols/tcp.rs:37-173:
 TCP_NODELAY on both sides, 5 s connect timeout, u32 length-delimited frames
 (framing lives in transport.base).
 
-A copy of ``pushcdn_tpu.proto.transport.tcp`` on the asyncio engine only:
-the io_uring engine (``PUSHCDN_IO_IMPL``) is not copied yet.
+The port's copy of ``pushcdn_tpu.proto.transport.tcp``: with
+``PUSHCDN_IO_IMPL=uring`` (or ``auto`` where the kernel allows it) the
+byte path runs on the io_uring engine of ``transport.uring``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,17 @@ class TcpListener(Listener):
         self._accept_q.put_nowait(None)  # wake any blocked accept()
 
 
+def _uring_selected() -> bool:
+    """True when the resolved io impl is the io_uring data plane. Imported
+    lazily so the asyncio-only path never touches the native shim."""
+    import os
+    if os.environ.get("PUSHCDN_IO_IMPL", "") == "" \
+            and os.environ.get("PUSHCDN_IO_URING", "") == "":
+        return False  # default impl: skip the probe entirely
+    from pushcdn_tpu_torch.proto.transport import uring as uring_mod
+    return uring_mod.resolve_io_impl() == "uring"
+
+
 class Tcp(Protocol):
     name = "tcp"
 
@@ -78,6 +90,15 @@ class Tcp(Protocol):
     async def connect(cls, endpoint: str, use_local_authority: bool = True,
                       limiter: Limiter = NO_LIMIT) -> Connection:
         host, port = parse_endpoint(endpoint)
+        if _uring_selected():
+            from pushcdn_tpu_torch.proto.transport import uring as uring_mod
+            try:
+                async with asyncio.timeout(CONNECT_TIMEOUT_S):
+                    return await uring_mod.uring_connect(
+                        host, port, limiter, label=f"tcp:{endpoint}")
+            except (OSError, asyncio.TimeoutError) as exc:
+                bail(ErrorKind.CONNECTION,
+                     f"tcp connect to {endpoint} failed", exc)
         try:
             async with asyncio.timeout(CONNECT_TIMEOUT_S):
                 reader, writer = await asyncio.open_connection(host, port)
@@ -91,6 +112,14 @@ class Tcp(Protocol):
     async def bind(cls, endpoint: str, certificate=None,
                    reuse_port: bool = False) -> Listener:
         host, port = parse_endpoint(endpoint)
+        if _uring_selected():
+            from pushcdn_tpu_torch.proto.transport import uring as uring_mod
+            try:
+                return uring_mod.uring_bind(host, port,
+                                            reuse_port=reuse_port)
+            except OSError as exc:
+                bail(ErrorKind.CONNECTION,
+                     f"tcp bind to {endpoint} failed", exc)
         listener = TcpListener()
         try:
             server = await asyncio.start_server(

@@ -5,8 +5,8 @@ server presents a leaf cert derived from the local (or production) CA with
 SAN ``pushcdn``; clients verify against that CA; no mutual TLS (user
 authentication is the signed-timestamp handshake at L4, not client certs).
 
-A copy of ``pushcdn_tpu.proto.transport.tcp_tls`` without the note it logs
-when the io_uring engine was selected: that engine is not copied yet.
+The port's copy of ``pushcdn_tpu.proto.transport.tcp_tls``. TLS runs on
+the asyncio engine whatever ``PUSHCDN_IO_IMPL`` says, and says so once.
 """
 
 from __future__ import annotations
@@ -76,12 +76,24 @@ class TcpTlsListener(Listener):
         self._accept_q.put_nowait(None)  # wake any blocked accept()
 
 
+def _note_io_impl() -> None:
+    """TLS always runs on the asyncio stream pair (Python's ssl module owns
+    the record layer, so there is no plaintext fd for io_uring to drive).
+    When the process selected the uring data plane, log the fallback ONCE
+    instead of silently ignoring the knob — honest labeling over silence."""
+    import os
+    if os.environ.get("PUSHCDN_IO_IMPL") or os.environ.get("PUSHCDN_IO_URING"):
+        from pushcdn_tpu_torch.proto.transport import uring as uring_mod
+        uring_mod.warn_tls_fallback_once()
+
+
 class TcpTls(Protocol):
     name = "tcp+tls"
 
     @classmethod
     async def connect(cls, endpoint: str, use_local_authority: bool = True,
                       limiter: Limiter = NO_LIMIT) -> Connection:
+        _note_io_impl()
         host, port = parse_endpoint(endpoint)
         ctx, server_hostname = client_context_for(use_local_authority, host)
         try:
@@ -97,6 +109,7 @@ class TcpTls(Protocol):
     async def bind(cls, endpoint: str,
                    certificate: "Certificate | None" = None,
                    reuse_port: bool = False) -> Listener:
+        _note_io_impl()
         host, port = parse_endpoint(endpoint)
         if certificate is None:
             certificate = local_certificate()

@@ -10,11 +10,11 @@ binaries (``pushcdn_tpu_torch.bin.*``). The runner itself never imports
 torch; a broker it starts with ``--device-plane`` does, and runs its
 plane on ``--device`` (default: CUDA; such a broker exits non-zero where
 there is none, and the run fails). ``--device`` is this package's
-counterpart of the JAX runner's ``JAX_PLATFORMS``. This package has no
-io_uring engine and no fused pump (ROADMAP.md, Queue A item 6):
-``--io-impl uring`` is refused before anything is spawned, ``auto`` runs
-asyncio with a warning, and ``--pump auto`` reports the pump check's
-skip. ``scripts/trace_report.py`` and ``scripts/cdn_top.py`` import
+counterpart of the JAX runner's ``JAX_PLATFORMS``. ``--io-impl`` and
+``--pump`` reach every spawned component through ``PUSHCDN_IO_IMPL`` and
+``PUSHCDN_PUMP``; with ``--pump auto`` the run checks that the fused pump
+engaged and pumped frames wherever the kernel allows io_uring, and says
+it skipped the check elsewhere. ``scripts/trace_report.py`` and ``scripts/cdn_top.py`` import
 nothing of either package and run as they are.
 
 Beyond the end-to-end echo, the run proves the observability plane end
@@ -1336,13 +1336,14 @@ def main() -> int:
     ap.add_argument("--io-impl", choices=("auto", "uring", "asyncio"),
                     default=None,
                     help="host I/O engine for every spawned component "
-                         "(exported as PUSHCDN_IO_IMPL). This package has "
-                         "no io_uring engine: uring is refused, auto runs "
-                         "asyncio with a warning")
+                         "(exported as PUSHCDN_IO_IMPL; auto demotes to "
+                         "asyncio with a warning when the kernel denies "
+                         "io_uring)")
     ap.add_argument("--pump", choices=("auto", "off"), default=None,
                     help="fused native data-plane pump for every broker "
-                         "(exported as PUSHCDN_PUMP). This package has no "
-                         "pump: auto reports the pump check as skipped")
+                         "(exported as PUSHCDN_PUMP; auto engages when "
+                         "io_uring + the native planner are both live, "
+                         "with an honest skip otherwise)")
     ap.add_argument("--chaos-events", default="broker,marshal,discovery",
                     metavar="LIST",
                     help="comma-separated subset of chaos events to run "
@@ -1350,20 +1351,11 @@ def main() -> int:
                          "runs one event to stay fast")
     args = ap.parse_args()
 
-    if args.io_impl == "uring":
-        # refused before anything is spawned, as the binaries refuse it
-        print("[cluster] --io-impl uring: this package has no io_uring "
-              "engine yet (ROADMAP.md, Queue A item 6); use asyncio or "
-              "auto", file=sys.stderr)
-        return 2
     if args.io_impl:
         # every spawned component inherits the selection (and a --shards
         # broker's workers inherit it transitively)
         os.environ["PUSHCDN_IO_IMPL"] = args.io_impl
         print(f"[cluster] io-impl: {args.io_impl}")
-        if args.io_impl == "auto":
-            print("[cluster] io_uring engine not in this package "
-                  "(ROADMAP.md, Queue A item 6): io impl auto runs asyncio")
 
     if args.pump:
         os.environ["PUSHCDN_PUMP"] = args.pump

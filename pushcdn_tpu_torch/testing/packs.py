@@ -31,14 +31,15 @@ MODULE = "pushcdn_tpu_torch.testing.clientpack"
 class Pack:
     """One client-pack process. Its stdout is read by a thread into a
     queue of events (``ready``, ``stats``, ``mark``, ``result``); stderr
-    goes to ``log_path`` (or nowhere)."""
+    goes to ``log_path`` (or nowhere); ``env`` adds to the environment it
+    inherits (``PUSHCDN_IO_IMPL`` puts its clients on io_uring)."""
 
     def __init__(self, marshal_endpoint: str, mode: str, clients: int,
                  seed_base: int, *extra: str, topics: int = 8,
-                 log_path=None, module: str = MODULE):
+                 log_path=None, module: str = MODULE, env=None):
         repo = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
-        env = dict(os.environ)
+        env = dict(os.environ, **(env or {}))
         env["PYTHONPATH"] = (repo + os.pathsep + env["PYTHONPATH"]
                              if env.get("PYTHONPATH") else repo)
         argv = [sys.executable, "-m", module,

@@ -6,11 +6,15 @@ over TCP, a pipelined burst routes on the plane (``/metrics`` shows
 and both exit 0 on SIGTERM, the broker with its exit line; two broker
 processes joined by ``--mesh-shards 2 --multihost-*`` serve a client
 each, a broadcast crossing from one to the other and a direct crossing
-back with no host broker link; and the broker refuses what it cannot
-serve: a plane on CUDA where there is none, delivery impls, schemes and
-discovery stores the port lacks, and the mesh-group flags the JAX binary
-refuses; and the three chaos binaries (``bad_broker``, ``bad_connector``,
-``bad_sender``) each run a few cycles against a marshal and broker."""
+back with no host broker link; a marshal and broker serve a client over
+each of ``tcp``, ``tcp+tls`` and ``quic``; the io knobs select the
+io_uring engine as the JAX binaries do (and, under a kernel that denies
+io_uring, an explicit ``uring`` exits naming the errno); and the broker
+refuses what it cannot serve: a plane on CUDA where there is none,
+delivery impls, schemes, transports and discovery stores the port lacks,
+and the mesh-group flags the JAX binary refuses; and the three chaos
+binaries (``bad_broker``, ``bad_connector``, ``bad_sender``) each run a
+few cycles against a marshal and broker."""
 
 import asyncio
 import json
@@ -141,7 +145,7 @@ async def test_broker_binary_device_plane_end_to_end(tmp_path):
     (("--device-plane", "--device", "cpu"),
      {"PUSHCDN_DELIVERY_IMPL": "pallas"}, "PUSHCDN_DELIVERY_IMPL='pallas'"),
     (("--scheme", "bls-bn254"), {}, "ROADMAP"),
-    (("--user-transport", "quic"), {}, "unknown transport"),
+    (("--user-transport", "sctp"), {}, "unknown transport"),
     (("--device-plane", "--mesh-shards", "2", "--device", "cpu"), {},
      "mutually exclusive"),
     (("--mesh-shard", "1"), {}, "--mesh-shard requires --mesh-shards"),
@@ -152,7 +156,8 @@ async def test_broker_binary_device_plane_end_to_end(tmp_path):
      "CUDA is not available"),
     (("--mesh-shards", "2", "--device", "cpu", "--multihost-coordinator",
       "127.0.0.1:1"), {}, "the process count"),
-], ids=["cuda-hidden", "pallas", "bls", "quic", "plane-and-mesh",
+], ids=["cuda-hidden", "pallas", "bls", "unknown-transport",
+         "plane-and-mesh",
         "shard-without-mesh", "non-local-shard", "mesh-cuda-hidden",
         "partial-multihost"])
 def test_broker_binary_refuses_what_it_cannot_serve(tmp_path, args, env,
@@ -539,49 +544,180 @@ async def test_drain_signal_during_held_start_drains(tmp_path):
         proc.wait()
 
 
-@pytest.mark.parametrize("name,env,refused", [
-    ("broker", {"PUSHCDN_IO_IMPL": "uring"}, True),
-    ("marshal", {"PUSHCDN_IO_IMPL": "uring"}, True),
-    ("broker", {"PUSHCDN_IO_URING": "1"}, True),
-    ("marshal", {"PUSHCDN_IO_IMPL": "auto"}, False),
-    ("broker", {"PUSHCDN_IO_URING": "auto"}, False),
-    ("marshal", {"PUSHCDN_IO_IMPL": "asyncio"}, False),
-], ids=["uring-broker", "uring-marshal", "legacy-uring-broker",
-        "auto-marshal", "legacy-auto-broker", "asyncio-marshal"])
-async def test_io_knobs_are_answered(tmp_path, name, env, refused):
-    """This package has no io_uring engine: an explicit ``uring`` is
-    refused at start naming the roadmap item, ``auto`` warns once and
-    serves on asyncio, ``asyncio`` is silent."""
+def _uring_allowed() -> bool:
+    from pushcdn_tpu_torch.native import uring
+    return uring.available()
+
+
+async def _scrape(port: int) -> str:
+    def get():
+        return urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=5).read().decode()
+    return await asyncio.to_thread(get)
+
+
+def _io_impl_series(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("cdn_io_impl{"):
+            impl = line.split('impl="', 1)[1].split('"', 1)[0]
+            out[impl] = float(line.split()[-1])
+    return out
+
+
+async def _serve_with_io_knobs(tmp_path, name, env, hook=None):
+    """Start ``name`` (broker or marshal) with its users on tcp and the
+    given io knobs; returns (rc, log text, cdn_io_impl series) — rc None
+    for a process that served until SIGTERM and then exited 0."""
     db = str(tmp_path / "d.sqlite")
+    metrics = _free_ports(1)[0]
     if name == "broker":
         pub, priv = _free_ports(2)
-        args = _broker_args(db, pub, priv)
+        args = _broker_args(db, pub, priv, "--user-transport", "tcp",
+                            "--metrics-bind-endpoint",
+                            f"127.0.0.1:{metrics}")
     else:
         args = ["--discovery-endpoint", db, "--bind-endpoint",
-                f"127.0.0.1:{_free_ports(1)[0]}"]
+                f"127.0.0.1:{_free_ports(1)[0]}", "--user-transport", "tcp",
+                "--metrics-bind-endpoint", f"127.0.0.1:{metrics}"]
+    env = dict(env)
+    if hook is not None:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = repo + os.pathsep + str(hook)
     log = tmp_path / f"{name}.log"
     proc = spawn_binary(name, *args, env_extra=env, log_path=log)
     try:
-        if refused:
-            rc = await asyncio.to_thread(proc.wait, 60)
-            text = log.read_text()
-            assert rc not in (0, None), text[-2000:]
-            assert "PUSHCDN_IO_IMPL=uring" in text
-            assert "Queue A item 6" in text
-            return
-        # serving, then a clean drain
-        await asyncio.sleep(1.5)
-        assert proc.poll() is None, log.read_text()[-2000:]
+        series = None
+        async with asyncio.timeout(60):
+            while proc.poll() is None:
+                try:
+                    series = _io_impl_series(await _scrape(metrics))
+                except (OSError, urllib.error.URLError):
+                    series = None
+                if series:
+                    break
+                await asyncio.sleep(0.2)
+        if proc.poll() is not None:
+            return proc.wait(), log.read_text(), series
         proc.send_signal(signal.SIGTERM)
         rc = await asyncio.to_thread(proc.wait, 30)
         text = log.read_text()
         assert rc == 0, text[-2000:]
-        warned = text.count("io impl auto runs asyncio")
-        assert warned == (0 if "asyncio" in env.values() else 1), text
+        return None, text, series
     finally:
         if proc.poll() is None:
             proc.kill()
         proc.wait()
+
+
+@pytest.mark.parametrize("name,env", [
+    ("broker", {"PUSHCDN_IO_IMPL": "uring"}),
+    ("marshal", {"PUSHCDN_IO_IMPL": "uring"}),
+    ("broker", {"PUSHCDN_IO_URING": "1"}),
+    ("marshal", {"PUSHCDN_IO_IMPL": "auto"}),
+    ("broker", {"PUSHCDN_IO_URING": "auto"}),
+    ("marshal", {"PUSHCDN_IO_IMPL": "asyncio"}),
+], ids=["uring-broker", "uring-marshal", "legacy-uring-broker",
+        "auto-marshal", "legacy-auto-broker", "asyncio-marshal"])
+async def test_io_knobs_are_answered(tmp_path, name, env):
+    """The io knobs as the JAX package's binaries answer them: an explicit
+    (or legacy) ``uring`` engages the io_uring engine
+    (``cdn_io_impl{impl="uring"}``), ``auto`` engages it where the kernel
+    allows io_uring and demotes with one warning elsewhere, ``asyncio``
+    stays on asyncio and says nothing."""
+    want = "asyncio" if "asyncio" in env.values() else "uring"
+    if want == "uring" and not _uring_allowed():
+        if "auto" not in env.values():
+            pytest.skip("the kernel denies io_uring: the explicit case "
+                        "is the denial test's")
+        want = "asyncio"
+    rc, text, series = await _serve_with_io_knobs(tmp_path, name, env)
+    assert rc is None, text[-2000:]
+    assert series == {want: 1.0}, (series, text[-2000:])
+    assert text.count("demoted to asyncio") == \
+        (1 if want == "asyncio" and "auto" in env.values() else 0), text
+
+
+_DENY_URING = """
+import errno
+from pushcdn_tpu_torch.native import uring
+uring._probe_result = -errno.ENOSYS
+"""
+
+
+@pytest.mark.parametrize("name,env,refused", [
+    ("broker", {"PUSHCDN_IO_IMPL": "uring"}, True),
+    ("marshal", {"PUSHCDN_IO_URING": "1"}, True),
+    ("broker", {"PUSHCDN_IO_IMPL": "auto"}, False),
+], ids=["uring-broker", "legacy-uring-marshal", "auto-broker"])
+async def test_io_knobs_under_a_kernel_that_denies_io_uring(
+        tmp_path, name, env, refused):
+    """With the probe answering ENOSYS (a ``sitecustomize`` sets it in
+    the child), an explicit ``uring`` exits non-zero naming the errno and
+    never serves, and ``auto`` serves on asyncio after one warning."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_DENY_URING)
+    rc, text, series = await _serve_with_io_knobs(tmp_path, name, env,
+                                                  hook=hook)
+    if refused:
+        assert rc not in (0, None), text[-2000:]
+        assert "ENOSYS" in text and "io_uring is unavailable" in text, \
+            text[-2000:]
+        return
+    assert rc is None, text[-2000:]
+    assert series == {"asyncio": 1.0}, (series, text[-2000:])
+    assert text.count("demoted to asyncio") == 1, text
+    assert "ENOSYS" in text
+
+
+@pytest.mark.parametrize("transport", ["tcp", "tcp+tls", "quic"])
+async def test_binaries_serve_a_client_over(tmp_path, transport):
+    """A marshal and a broker, both on ``--user-transport`` as given,
+    serve a client of the same transport: a direct to itself and a
+    broadcast come back; both exit 0 on SIGTERM."""
+    from pushcdn_tpu_torch.bin.common import TRANSPORTS
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME
+
+    db = str(tmp_path / "cdn.sqlite")
+    pub, priv, marshal = _free_ports(3)
+    logs = {n: tmp_path / f"{n}.log" for n in ("broker", "marshal")}
+    procs = {
+        "broker": spawn_binary(
+            "broker", *_broker_args(db, pub, priv, "--user-transport",
+                                    transport), log_path=logs["broker"]),
+        "marshal": spawn_binary(
+            "marshal", "--discovery-endpoint", db,
+            "--bind-endpoint", f"127.0.0.1:{marshal}",
+            "--user-transport", transport, log_path=logs["marshal"]),
+    }
+    try:
+        keypair = DEFAULT_SCHEME.generate_keypair(seed=9700)
+        client = Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}", keypair=keypair,
+            protocol=TRANSPORTS[transport], subscribed_topics={3}))
+        async with asyncio.timeout(45):
+            await client.ensure_initialized()
+            await client.send_direct_message(keypair.public_key, b"self")
+            await client.send_broadcast_message([3], b"all")
+            got = []
+            while len(got) < 2:
+                got += await client.receive_messages()
+        # (a delivery may carry a trace block: TracedDirect and the like)
+        assert sorted(bytes(m.message) for m in got) == [b"all", b"self"]
+        client.close()
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(p.wait, 30)
+               for n, p in procs.items()}
+        assert rcs == {"broker": 0, "marshal": 0}, \
+            {n: logs[n].read_text()[-2000:] for n in procs}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
 
 def _drain_summaries(text: str) -> list:

@@ -1,8 +1,8 @@
 """The port's cut-through routing plane held against its scalar twin and
 against the JAX package's cut-through plane.
 
-The twins of the non-sharded, non-pump cases of
-``tests/test_route_cutthrough.py`` and ``tests/test_route_state.py``:
+The twins of the non-sharded cases of ``tests/test_route_cutthrough.py``
+and ``tests/test_route_state.py``:
 
 - the same seeded frame mixes (broadcast / direct / control / garbage)
   go through the port's broker with ``ROUTE_IMPL`` ``native`` and
@@ -15,7 +15,13 @@ The twins of the non-sharded, non-pump cases of
 - the same seeded interleavings of ``Connections`` mutations go to a
   port ``RouteState`` and a JAX one kept incrementally, and a port twin
   rebuilt from scratch: all three must plan the same fan-out for a probe
-  chunk, and take the same labelled rebuilds.
+  chunk, and take the same labelled rebuilds;
+- the same seeded mixes over loopback TCP go through the port's broker on
+  asyncio with the scalar loops, on io_uring with the plan, and on
+  io_uring with the fused native pump, and through the JAX package's
+  broker with its pump: the same deliveries, disconnect decisions and
+  pool balance, with the pump legs' frames counted under
+  ``cdn_route_batch_frames{path="pump"}``.
 """
 
 import asyncio
@@ -28,7 +34,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from _torch_libs import jax_routeplan_available
+from _torch_libs import jax_pump_available, jax_routeplan_available
 from pushcdn_tpu_torch.native import routeplan as port_routeplan
 
 pytestmark = pytest.mark.skipif(
@@ -51,7 +57,8 @@ def _pkg(name: str) -> SimpleNamespace:
         metrics=mod("proto.metrics"), msg=mod("proto.message"),
         trace=mod("proto.trace"), base=mod("proto.transport.base"),
         memory=mod("proto.transport.memory"),
-        routeplan=mod("native.routeplan"))
+        routeplan=mod("native.routeplan"),
+        umod=mod("proto.transport.uring"), pump_mod=mod("proto.transport.pump"))
 
 
 JAX, PORT = _pkg("jax"), _pkg("port")
@@ -718,3 +725,199 @@ def test_route_impl_env(value, impl):
                        capture_output=True, text=True, timeout=60)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == impl
+
+
+# ---------------------------------------------------------------------------
+# the fused native pump: the twins of test_pump_mix_equivalence and its
+# durable case
+# ---------------------------------------------------------------------------
+
+from pushcdn_tpu_torch.native import pump as _port_npump  # noqa: E402
+from pushcdn_tpu_torch.native import uring as _port_nuring  # noqa: E402
+
+_PUMP_OK = (_port_nuring.available() and _port_npump.available()
+            and jax_pump_available())
+requires_pump = pytest.mark.skipif(
+    not _PUMP_OK,
+    reason="fused pump needs io_uring + the native route-plan library")
+
+# legs: the port's scalar reference, its cut-through on io_uring, its
+# fused pump, and the JAX package's fused pump
+_PUMP_LEGS = ((PORT, "asyncio", "python", "off"),
+              (PORT, "uring", "native", "off"),
+              (PORT, "uring", "native", "auto"),
+              (JAX, "uring", "native", "auto"))
+
+
+def _gen_pump_frames(rng: np.random.Generator, n: int, popularity: str):
+    """A seeded mix covering every pump escalation class: broadcasts
+    (uniform or zipf topic popularity), directs, control (sub/unsub),
+    traced frames, and trailing garbage. The warmup prefix engages the
+    pump before the interesting frames arrive."""
+    m, trace_lib = PORT.msg, PORT.trace
+    topic_p = np.array([0.85, 0.15] if popularity == "zipf"
+                       else [0.5, 0.5])
+
+    def pick_topics(k):
+        return [int(t) for t in rng.choice([0, 1], size=k, p=topic_p)]
+
+    frames = [m.serialize(m.Broadcast([0], b"warm-%02d" % i))
+              for i in range(8)]
+    for _ in range(n):
+        roll = rng.integers(0, 100)
+        payload = bytes(rng.integers(0, 256, int(rng.integers(1, 256)),
+                                     dtype=np.uint8))
+        if roll < 60:
+            frames.append(m.serialize(m.Broadcast(
+                pick_topics(int(rng.integers(1, 3))), payload)))
+        elif roll < 78:
+            rcpt = KNOWN_DIRECTS[int(rng.integers(0, len(KNOWN_DIRECTS)))]
+            frames.append(m.serialize(m.Direct(rcpt, payload)))
+        elif roll < 86:
+            frames.append(m.serialize(m.Subscribe(pick_topics(1))))
+        elif roll < 92:
+            frames.append(m.serialize(m.Unsubscribe([0])))
+        elif roll < 97:
+            tr = trace_lib.new_trace()
+            frames.append(trace_lib.stamp_frame(
+                m.serialize(m.Broadcast(pick_topics(1), payload)), tr))
+        else:
+            frames.append(b"\xfe" + payload)  # garbage: unknown kind
+    return frames
+
+
+async def _drain_tcp(p, user, quiet=0.3):
+    """Every frame a TCP user receives until silence, as full bytes."""
+    got = []
+    while True:
+        try:
+            raw = await asyncio.wait_for(user.remote.recv_raw(), quiet)
+        except (asyncio.TimeoutError, Exception):
+            return got
+        if type(raw) is p.base.FrameChunk:
+            got.extend(bytes(mv) for mv in raw.views())
+        elif hasattr(raw, "data"):
+            got.append(bytes(raw.data))
+        else:
+            got.append(bytes(raw))
+        if hasattr(raw, "release"):
+            raw.release()
+
+
+async def _pool_balanced(pool) -> bool:
+    if pool is None:
+        return True
+    for _ in range(20):
+        gc.collect()
+        if pool.available == pool.capacity:
+            return True
+        await asyncio.sleep(0.02)
+    return pool.available == pool.capacity
+
+
+async def _run_mix_pump(p, io_impl, route_impl, pump, frames, retain=None):
+    """One mix through package ``p``'s broker on one (io, route, pump) leg
+    over loopback TCP: (deliveries, sender alive, balanced, pump summary,
+    frames counted under path=pump)."""
+    cut, umod, pump_mod = p.cutthrough, p.umod, p.pump_mod
+    prev_impl = cut.ROUTE_IMPL
+    saved = (umod._resolved, umod._warned_demote,
+             pump_mod.PUMP_IMPL, pump_mod._warned_demote)
+    prev_env = {k: os.environ.get(k)
+                for k in ("PUSHCDN_RETAIN_TOPICS", "PUSHCDN_IO_IMPL")}
+    pumped = p.metrics.ROUTE_PUMP_FRAMES
+    pumped_before = pumped.value
+    umod.set_io_impl(io_impl)
+    cut.ROUTE_IMPL = route_impl
+    pump_mod.set_pump_impl(pump)
+    if retain is not None:
+        os.environ["PUSHCDN_RETAIN_TOPICS"] = retain
+    else:
+        os.environ.pop("PUSHCDN_RETAIN_TOPICS", None)
+    try:
+        run = await p.harness.TestDefinition(
+            connected_users=USER_TOPICS, connected_brokers=BROKER_DEFS,
+            tcp_users=True).run()
+        try:
+            sender = run.user(0).remote
+            try:
+                # warmup wave, then an idle gap: the pump legs engage
+                # before the seeded mix arrives (a no-op for the others)
+                await sender.send_raw_many(list(frames[:8]), flush=True)
+                await asyncio.sleep(0.2)
+                await sender.send_raw_many(list(frames[8:]), flush=True)
+            except Exception:
+                pass  # disconnected mid-send: a legal outcome
+            await asyncio.sleep(0.3)
+            deliveries = {}
+            for i in range(1, len(USER_TOPICS)):
+                deliveries[f"user-{i}"] = await _drain_tcp(p, run.user(i))
+            for j in range(len(BROKER_DEFS)):
+                deliveries[f"peer-{j}"] = await _drain_all(
+                    p, run.peer(j).remote)
+            deliveries["user-0"] = await _drain_tcp(p, run.user(0))
+            alive = run.broker.connections.has_user(b"user-0")
+            state = getattr(run.broker, "_route_state", None)
+            ps = getattr(state, "_pump_state", None)
+            summary = (ps.summary() if ps is not None and not ps.closed
+                       else None)
+            # with retention on, the rings park leases until broker close
+            balanced = (retain is not None
+                        or await _pool_balanced(run.broker.limiter.pool))
+        finally:
+            await run.shutdown()
+        if retain is not None:
+            balanced = await _pool_balanced(run.broker.limiter.pool)
+        return (deliveries, alive, balanced, summary,
+                pumped.value - pumped_before)
+    finally:
+        umod.UringEngine.shutdown()
+        cut.ROUTE_IMPL = prev_impl
+        (umod._resolved, umod._warned_demote,
+         pump_mod.PUMP_IMPL, pump_mod._warned_demote) = saved
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+async def _pump_legs(frames, label, retain=None):
+    baseline = base_alive = None
+    for p, io_impl, route_impl, pump in _PUMP_LEGS:
+        leg = f"{label}: {p.name} {io_impl}/{route_impl}/pump={pump}"
+        d, alive, balanced, summary, pumped = await _run_mix_pump(
+            p, io_impl, route_impl, pump, frames, retain=retain)
+        assert balanced, f"{leg}: pool permits leaked"
+        if baseline is None:
+            baseline, base_alive = d, alive
+            assert any(len(v) > 0 for v in d.values()), d
+        assert alive == base_alive, f"{leg}: disconnect decisions differ"
+        assert d == baseline, f"{leg}: delivery diverged"
+        if pump == "auto":
+            assert summary is not None and summary["pump_frames"] > 0, (
+                f"{leg}: never pumped: {summary}")
+            assert pumped > 0, f"{leg}: nothing counted under path=pump"
+        else:
+            assert pumped == 0, f"{leg}: path=pump counted without a pump"
+
+
+@requires_pump
+@pytest.mark.parametrize("popularity", ("uniform", "zipf"))
+@pytest.mark.parametrize("seed", range(3))
+async def test_pump_mix_equivalence(seed, popularity):
+    rng = np.random.default_rng(17_000 + seed
+                                + (500 if popularity == "zipf" else 0))
+    await _pump_legs(_gen_pump_frames(rng, 48, popularity),
+                     f"seed {seed}/{popularity}")
+
+
+@requires_pump
+async def test_pump_mix_equivalence_durable():
+    """The durable escalation class: with topic 0 retained, the pump must
+    hand retained broadcasts to the retention ring exactly as the scalar
+    path does — identical live deliveries, and the pump still engaged
+    for the rest of the mix."""
+    rng = np.random.default_rng(17_900)
+    await _pump_legs(_gen_pump_frames(rng, 48, "uniform"), "durable",
+                     retain="0")

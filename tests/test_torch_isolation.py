@@ -240,7 +240,12 @@ print(line)
     "pushcdn_tpu_torch.testing.accel_probe",
     "pushcdn_tpu_torch.bin.bad_broker",
     "pushcdn_tpu_torch.bin.bad_connector",
-    "pushcdn_tpu_torch.bin.bad_sender"])
+    "pushcdn_tpu_torch.bin.bad_sender",
+    "pushcdn_tpu_torch.native.uring", "pushcdn_tpu_torch.native.pump",
+    "pushcdn_tpu_torch.native.syscount",
+    "pushcdn_tpu_torch.proto.transport.uring",
+    "pushcdn_tpu_torch.proto.transport.pump",
+    "pushcdn_tpu_torch.proto.transport.quic"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -389,6 +394,40 @@ def test_runner_and_its_processes_do_not_import_torch(tmp_path):
     # trace report (run until the chain is complete)
     armed = set((tmp_path / "imports.log.armed").read_text().split())
     assert len(armed) >= 6, armed
+
+
+def test_pumped_uring_brokers_do_not_import_torch(tmp_path):
+    """The runner with ``--io-impl uring --pump auto``: both plane-less
+    brokers serve on the io_uring engine with the fused pump engaged
+    (where the kernel allows io_uring), and no process of the run imports
+    torch, JAX or the JAX package."""
+    import os
+
+    from pushcdn_tpu_torch.native import pump as npump
+    from pushcdn_tpu_torch.native import uring as nuring
+    if not (nuring.available() and npump.available()):
+        pytest.skip(f"no io_uring here ({nuring.probe_errname()})")
+    trap_dir = tmp_path / "trap"
+    trap_dir.mkdir()
+    (trap_dir / "sitecustomize.py").write_text(_IMPORT_TRAP)
+    log = tmp_path / "imports.log"
+    log.write_text("")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PUSHCDN_IO_IMPL", "PUSHCDN_IO_URING", "PUSHCDN_PUMP")}
+    env.update(PUSHCDN_IMPORT_TRAP_LOG=str(log),
+               PYTHONPATH=f"{trap_dir}{os.pathsep}{ROOT}")
+    r = subprocess.run(
+        [sys.executable, "-m", "pushcdn_tpu_torch.scripts.local_cluster",
+         "--duration", "10", "--base-port", "0", "--io-impl", "uring",
+         "--pump", "auto"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=180)
+    out = r.stdout + r.stderr
+    assert r.returncode == 0, out[-4000:]
+    assert "pump OK" in out, out[-4000:]
+    assert "OK: end-to-end echo through real processes" in out, out[-4000:]
+    assert log.read_text() == "", log.read_text()[-3000:]
+    armed = set((tmp_path / "imports.log.armed").read_text().split())
+    assert len(armed) >= 5, armed
 
 
 _HOST_BROKER = r"""

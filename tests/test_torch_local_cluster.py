@@ -5,8 +5,8 @@ collector and conservation-audit cases, with the same OK lines, plus what
 the port's runner adds: ``--device-plane --device cpu`` (the brokers' dense
 planes on the CPU, through the same checks), a plane broker without
 ``--device`` where there is no card (it runs on CUDA, so it dies and the
-run fails), and the refusal of ``--io-impl uring`` before anything is
-spawned.
+run fails), and ``--io-impl uring --pump auto``, under which every
+component insists on the io_uring engine and both brokers' pumps engage.
 
 The load-shed, sharded-broker, chaos, re-home and replay twins are in
 ``tests/test_torch_local_cluster_ops.py`` (two files, so that xdist's
@@ -93,12 +93,24 @@ def test_local_cluster_end_to_end_echo_and_clean_shutdown(tmp_path):
         "marshal.jsonl"}, logs
 
 
+def _pump_composes() -> bool:
+    """Whether the fused pump can engage on this host: io_uring allowed,
+    the route-plan and pump libraries built."""
+    from pushcdn_tpu_torch.native import pump as npump
+    from pushcdn_tpu_torch.native import routeplan
+    from pushcdn_tpu_torch.native import uring as nuring
+    return (nuring.available() and routeplan.available()
+            and npump.available())
+
+
 @cluster_test
 def test_local_cluster_io_impl_auto(tmp_path):
-    """``--io-impl auto --pump auto``: this package has neither io_uring
-    nor the fused pump, so every component runs asyncio (one warning from
-    the runner, one from each binary), the pump check reports its skip, and
-    the echo and the strict trace gate pass as without them."""
+    """``--io-impl auto --pump auto``: every component resolves the host
+    I/O engine (io_uring where the kernel allows it, one warning each
+    where it does not), the fused pump engages and pumps real frames (or
+    the runner says it skipped the check), the echo completes, and the
+    strict trace gate still sees complete chains with zero orphans:
+    traced frames escalate off the pump and chain as before."""
     trace_dir = str(tmp_path / "spans")
     rc, out = run_runner("--duration", "10", "--base-port", "0",
                          "--io-impl", "auto", "--pump", "auto",
@@ -106,17 +118,45 @@ def test_local_cluster_io_impl_auto(tmp_path):
     assert rc == 0, f"io-impl cluster failed:\n{out[-6000:]}"
     assert "[cluster] io-impl: auto" in out, out[-6000:]
     assert "[cluster] pump: auto" in out, out[-6000:]
-    assert "io impl auto runs asyncio" in out, out[-6000:]
-    assert "pump skipped" in out, out[-6000:]
+    if _pump_composes():
+        assert "pump OK" in out, out[-6000:]
+    else:
+        assert "pump skipped" in out, out[-6000:]
     assert "OK: end-to-end echo through real processes" in out, out[-6000:]
     assert "trace chain complete" in out, out[-6000:]
     assert "trace report OK" in out, out[-6000:]
     assert "0 orphaned spans" in out, out[-6000:]
     assert "FAIL" not in out, out[-6000:]
+    from pushcdn_tpu_torch.native import uring as nuring
     (logdir,) = glob.glob(str(tmp_path / "pushcdn-cluster-*"))
     for name in ("broker0", "broker1", "marshal"):
         text = open(os.path.join(logdir, f"{name}.log")).read()
-        assert text.count("io impl auto runs asyncio") == 1, (name, text)
+        assert text.count("demoted to asyncio") == \
+            (0 if nuring.available() else 1), (name, text[-2000:])
+
+
+@cluster_test
+def test_local_cluster_io_impl_uring(tmp_path):
+    """``--io-impl uring --pump auto`` where the kernel allows io_uring:
+    every component insists on the engine (none demotes), both brokers'
+    fused pumps engage and pump real frames, and the echo completes."""
+    from pushcdn_tpu_torch.native import uring as nuring
+    if not nuring.available():
+        pytest.skip(f"the kernel denies io_uring ({nuring.probe_errname()})")
+    rc, out = run_runner("--duration", "10", "--base-port", "0",
+                         "--io-impl", "uring", "--pump", "auto",
+                         tmpdir=tmp_path)
+    assert rc == 0, f"uring cluster failed:\n{out[-6000:]}"
+    assert "[cluster] io-impl: uring" in out, out[-6000:]
+    if _pump_composes():
+        assert "pump OK" in out, out[-6000:]
+    assert "OK: end-to-end echo through real processes" in out, out[-6000:]
+    assert "FAIL" not in out, out[-6000:]
+    (logdir,) = glob.glob(str(tmp_path / "pushcdn-cluster-*"))
+    for name in ("broker0", "broker1", "marshal"):
+        text = open(os.path.join(logdir, f"{name}.log")).read()
+        assert "demoted to asyncio" not in text, (name, text[-2000:])
+        assert "io_uring is unavailable" not in text, (name, text[-2000:])
 
 
 @cluster_test
@@ -124,14 +164,19 @@ def test_local_cluster_collector():
     """``--collector`` drives ``scripts/cdn_top.py --once --record
     --bundle`` over every process's metrics endpoint: the pane covers
     every process, the timeline's headline saw them all up, and the bundle
-    holds every process's metrics and each broker's topology; the pump's
-    stage check skips (no pump in this package)."""
+    holds every process's metrics and each broker's topology. With
+    ``--pump auto`` where io_uring is allowed, the bundled broker metrics
+    carry non-zero ``cdn_pump_stage_seconds`` samples for all four native
+    stages; elsewhere the runner says it skipped that check."""
     rc, out = run_runner("--duration", "10", "--base-port", "0",
                          "--io-impl", "auto", "--pump", "auto",
                          "--collector", timeout=240)
     assert rc == 0, f"collector cluster failed:\n{out[-6000:]}"
     assert "collector OK" in out, out[-6000:]
-    assert "pump-stage check skipped" in out, out[-6000:]
+    if _pump_composes():
+        assert "pump stages all nonzero" in out, out[-6000:]
+    else:
+        assert "pump-stage check skipped" in out, out[-6000:]
     assert "OK: end-to-end echo through real processes" in out, out[-6000:]
     assert "FAIL" not in out, out[-6000:]
 
@@ -196,13 +241,3 @@ def test_local_cluster_device_plane_needs_a_card_unless_told(tmp_path):
     (logdir,) = glob.glob(str(tmp_path / "pushcdn-cluster-*"))
     text = open(os.path.join(logdir, "broker0.log")).read()
     assert "--device-plane" in text and "CUDA" in text, text[-2000:]
-
-
-def test_local_cluster_refuses_io_uring(tmp_path):
-    """``--io-impl uring`` is refused before anything is spawned, naming
-    the roadmap item that brings the engine, as the binaries refuse it."""
-    rc, out = run_runner("--io-impl", "uring", tmpdir=tmp_path, timeout=60)
-    assert rc == 2, out[-2000:]
-    assert "Queue A item 6" in out, out
-    assert "up (pid" not in out, out
-    assert not glob.glob(str(tmp_path / "pushcdn-cluster-*"))

@@ -448,9 +448,13 @@ def test_both_decoders_in_one_process_keep_their_classes():
 
 def test_libraries_build_from_the_ports_sources():
     from pushcdn_tpu.native import routeplan as jroute
+    from pushcdn_tpu.native import pump as jpump
+    from pushcdn_tpu.native import syscount as jsyscount
+    from pushcdn_tpu.native import uring as juring
     paths = tnative.build()     # every library, loaded in this process
     assert paths == tnative.library_paths()
-    assert set(paths) == {"framing", "pydecode", "route_plan"}
+    assert set(paths) == {"framing", "pydecode", "route_plan", "io_uring",
+                          "pump", "syscount"}
     for name, path in paths.items():
         assert path.parent == ROOT / ".build" / "torch_native"
         assert path.is_file(), name
@@ -458,18 +462,25 @@ def test_libraries_build_from_the_ports_sources():
     assert paths["framing"] != Path(jnative._LIB_PATH)
     assert paths["pydecode"] != Path(jnative._pydecode_lib_path())
     assert paths["route_plan"] != Path(jroute._LIB_PATH)
+    assert paths["io_uring"] != Path(juring._LIB_PATH)
+    assert paths["pump"] != Path(jpump._LIB_PATH)
+    assert paths["syscount"] != Path(jsyscount._LIB_PATH)
     assert paths["pydecode"].name.endswith(
         f"-{tnative._pydecode_abi()}.so")
     maps = Path("/proc/self/maps").read_text()
-    for path in paths.values():
-        assert str(path) in maps   # the port's own files are the loaded ones
-    for module in ("__init__.py", "routeplan.py"):
+    for name, path in paths.items():
+        # the port's own files are the loaded ones; the interposer loads
+        # only by LD_PRELOAD, into a child
+        assert (str(path) in maps) == (name != "syscount"), name
+    for module in ("__init__.py", "routeplan.py", "uring.py", "pump.py",
+                   "syscount.py"):
         src = (ROOT / "pushcdn_tpu_torch" / "native" / module).read_text()
         assert '"native"' not in src and "_REPO" not in src
 
 
 def test_library_name_follows_source_and_flags(monkeypatch, tmp_path):
-    for name in ("framing", "pydecode", "route_plan"):
+    for name in ("framing", "pydecode", "route_plan", "io_uring", "pump",
+                 "syscount"):
         (tmp_path / f"{name}.cpp").write_bytes(
             (tnative.SRC_DIR / f"{name}.cpp").read_bytes())
     monkeypatch.setattr(tnative, "SRC_DIR", tmp_path)
@@ -478,6 +489,30 @@ def test_library_name_follows_source_and_flags(monkeypatch, tmp_path):
     assert tnative.library_path("framing", ("-g",)) != first
     (tmp_path / "framing.cpp").write_text("// edited\n")
     assert tnative.library_path("framing") != first
+
+
+def test_pump_library_name_follows_the_sources_it_includes(monkeypatch,
+                                                          tmp_path):
+    """The pump's translation unit includes io_uring.cpp and
+    route_plan.cpp from the port's directory: an edit to either names a
+    new pump library (a stale one never loads), and the build's ``-I``
+    is that directory."""
+    from pushcdn_tpu_torch.native import pump as tpump
+    for name in ("pump", "io_uring", "route_plan"):
+        (tmp_path / f"{name}.cpp").write_bytes(
+            (tnative.SRC_DIR / f"{name}.cpp").read_bytes())
+    assert tpump.FLAGS == ("-I", str(tnative.SRC_DIR))
+    assert "pushcdn_tpu_torch" in tpump.FLAGS[1]
+    monkeypatch.setattr(tnative, "SRC_DIR", tmp_path)
+    first = tnative.library_path("pump", tpump.FLAGS)
+    for dep in ("io_uring", "route_plan"):
+        src = tmp_path / f"{dep}.cpp"
+        kept = src.read_bytes()
+        src.write_bytes(kept + b"// edited\n")
+        assert tnative.library_path("pump", tpump.FLAGS) != first, dep
+        # the included library's own name moves too
+        src.write_bytes(kept)
+        assert tnative.library_path("pump", tpump.FLAGS) == first
 
 
 def test_failed_build_degrades_and_is_recorded(monkeypatch, tmp_path):
@@ -518,8 +553,9 @@ def test_native_module_needs_neither_torch_nor_jax():
 
 async def _plane_run(tag: str) -> tuple:
     """A port broker with a dense plane on the CPU: 12 users, 4 publish
-    broadcasts and directs in two rounds; returns every user's frames in
-    arrival order and the plane's egress counters."""
+    broadcasts and directs in two rounds, one publisher at a time;
+    returns every user's frames in arrival order and the plane's egress
+    counters."""
     from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
     from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
     from pushcdn_tpu_torch.broker.test_harness import TestRun
@@ -579,9 +615,12 @@ async def _plane_run(tag: str) -> tuple:
                                         for u in range(12))
                     await run.user(pub).remote.send_raw_many(frames,
                                                              flush=True)
-                async with asyncio.timeout(20):
-                    while sum(map(len, got.values())) < want:
-                        await asyncio.sleep(0.005)
+                    # drained before the next publisher sends: how two
+                    # publishers' frames interleave across the plane's
+                    # steps is a matter of timing, not of the encoder
+                    async with asyncio.timeout(20):
+                        while sum(map(len, got.values())) < want:
+                            await asyncio.sleep(0.005)
         finally:
             for t in drains:
                 t.cancel()
