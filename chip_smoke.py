@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
 2. build — both kernels from ``pushcdn_tpu_torch/csrc`` with nvcc and,
    beside them, the native host routines from
    ``pushcdn_tpu_torch/native/*.cpp`` with g++ (the framing library, the
-   batch decoder and the cut-through route plan; each one's seconds);
+   batch decoder and the cut-through route plan; each one's seconds) and
+   the BLS-over-BN254 library (``native/bls_bn254.cpp``), which must pass
+   its self-test;
 3. kernels vs plain — each CUDA kernel against its plain PyTorch version
    on the card, bit for bit, at edge shapes (the cases of
    ``pushcdn_tpu_torch/testing/kernel_cases.py``) and the main path's
@@ -64,9 +66,10 @@ Phases, each printing one JSON line:
    remote end drains and records what arrives.
    Dense and ragged at uniform and zipf (1 burst each), then the
    same bursts through a broker with no device plane (the port's host
-   path on the same machine): uniform as the reference routes by default
-   (``PUSHCDN_ROUTE_CUTTHROUGH`` unset: the cut-through plane) and on its
-   scalar twin (``python``), zipf on the default. Each run must deliver
+   path on the same machine), as the reference routes by default
+   (``PUSHCDN_ROUTE_CUTTHROUGH`` unset: the cut-through plane); the run
+   on its scalar twin (``python``) at uniform was cut for the script's
+   time limit, named on the uniform host run's line. Each run must deliver
    exactly the scalar oracle's frames to every user, in publisher order
    within each lane; a plane run must route every delivery on the plane
    (``messages_routed``) without disabling it, and launch its kernel; a
@@ -74,7 +77,7 @@ Phases, each printing one JSON line:
    (``native_egress_steps`` equal to ``busy_steps``). Every publisher
    frame must be counted by ``cdn_route_batch_frames`` under
    ``path=cutthrough`` on a default host run, and under ``path=scalar``
-   on the twin and under a plane; one ``broker`` line per run, then one
+   under a plane; one ``broker`` line per run, then one
    ``broker_ratio`` line, each plane's msgs/s over each host run's;
 9. the cluster as processes, started as the README's quick start starts
    it: ``python -m pushcdn_tpu_torch.bin.marshal`` and ``python -m
@@ -113,8 +116,9 @@ Phases, each printing one JSON line:
    reach no one); (4) the same four brokers without a group, joined by
    host links, run 2's first burst, routed as the reference does by default
    (every broker's user loops and broker links must plan frames through
-   the cut-through plane), then again on the scalar twin, with one
-   ``mesh_broker_ratio`` line (the fused group's msgs/s over each); (5) a
+   the cut-through plane; the pass on the scalar twin was cut for the
+   script's time limit, named on the run's line), with one
+   ``mesh_broker_ratio`` line (the fused group's msgs/s over it); (5) a
    small ``MeshCluster`` on the card,
    a marshal and one authenticated ``Client`` per shard, a cross-shard
    broadcast and direct each arriving exactly once. Each run's deliveries
@@ -131,7 +135,9 @@ Phases, each printing one JSON line:
    user slots a shard. Runs: (1) two worker processes (``python -m
    pushcdn_tpu_torch.testing.lockstep_worker``) step a socket-free
    ``MultiHostBrokerGroup`` in lockstep for 8 ticks of phase 6's traffic
-   (4032 users, no churn), uniform and zipf, fused and per-array; each
+   (4032 users, no churn), uniform fused and zipf per-array (the other
+   two of the four were cut for the script's time limit, named on each
+   run's line); each
    tick's deliveries of both processes must equal phase 6's oracle and
    the one-process ``MeshGroup`` of 8 shards on the card, pair for pair
    and frame for frame, with 8 dense launches a tick per process; (2) two
@@ -143,10 +149,10 @@ Phases, each printing one JSON line:
    discovery directory; every delivery against the oracle, zero host
    broker links, 8 launches a step and one collective a tick, the idle
    lockstep tick measured and split (the stop barrier, the step, how
-   late the pump's window sleep returns, the directory's refreshes);
-   beside it the same users and bursts through
-   one process's group of 8 shards on the card (reported, not claimed);
-   (3) a marshal and two ``broker --mesh-shards 2 --multihost-*
+   late the pump's window sleep returns, the directory's refreshes)
+   (the same users and bursts through one process's group of 8 shards
+   beside it were cut for the script's time limit, named on the run's
+   line); (3) a marshal and two ``broker --mesh-shards 2 --multihost-*
    --device cuda:0`` processes, a TCP+TLS client on each: a broadcast
    crosses, a direct crosses back, no broker link, both exit 0 on
    SIGTERM with their launches on their exit lines. Runs 2 and 3 must
@@ -285,7 +291,36 @@ Phases, each printing one JSON line:
    ``/metrics`` at least 512 routed, the exit line ragged launches after
    the warm-up, every process exits 0 on SIGTERM; connect seconds,
    delivered msgs/s and publish-to-receive p50 / p99. One ``io`` line per
-   run.
+   run;
+18. the production run definition's shape (``def_.production_run_def``:
+   BLS-over-BN254 keys on both links, brokers linked over TCP, users on
+   TCP+TLS, Redis discovery) under dense planes (appended after phase
+   17). It probes for the ``redis`` package and a ``redis-server`` or
+   ``keydb-server`` on ``PATH``; where both exist, (a)'s discovery runs on
+   a throwaway server, otherwise on a fresh SQLite file, and the line says
+   ``"redis": "absent: <what>"``. (a) A marshal ``--scheme bls-bn254``
+   (its line-table cache sized to 1024 keys) and brokers A and B, each
+   ``--device-plane --scheme bls-bn254`` with the broker link on TCP and
+   users on TCP+TLS; phase 15 (c)'s users: 256 clients here with seeded
+   BLS keys, 3 uniform topics of 256, placed over both brokers by the
+   marshal; 16 publish one uniform burst of phase 8's mix, which every
+   client must receive exactly as the oracle says, some of it across the
+   A-B link; the marshal's ``/metrics`` must show
+   ``cdn_native_seconds{kernel="bls_verify"}`` > 0 and
+   ``cdn_bls_pk_cache{stat="misses"}`` >= 256, and, after every client
+   reconnects once, ``cdn_bls_pk_cache{stat="hits"}`` >= 256; each
+   broker's ``/metrics`` ``cdn_device_messages_routed`` > 0 and its exit
+   line dense launches after the warm-up; connect seconds p50 / p99, cold
+   and warm; a plane-less broker given ``redis://`` where the package is
+   absent must exit non-zero with the JAX package's message. (b) In
+   process: ``production_run_def().user_def.scheme`` must be
+   ``BlsBn254Scheme``; then phase 16 (b)'s consensus cluster (two brokers
+   with 1024-slot dense planes on the card, ``bypass_max_items=0``) with
+   BLS keys, the 1024 nodes connected concurrently (half onto each
+   broker), the marshal's batching verifier reporting ``batches`` > 0 and
+   more than one item a batch, one node with a forged signature refused
+   while every other is admitted; 2 views, each completing with its
+   leader holding a quorum of 683. One ``prod`` line per run.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before the last line.
@@ -1366,8 +1401,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
     """One run of the broker phase: a broker with a device plane of
     ``impl`` on ``device``, or none: ``impl="host"`` routes as the
     reference does by default (``PUSHCDN_ROUTE_CUTTHROUGH`` unset: the
-    cut-through plane), ``"host-scalar"`` takes the scalar twin
-    (``python``). Its users are injected over the Memory transport, the
+    cut-through plane). Its users are injected over the Memory transport, the
     scenario's bursts published and drained; every check of the run,
     then its numbers."""
     from pushcdn_tpu_torch.broker.broker import Broker, BrokerConfig
@@ -1385,8 +1419,8 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
     U, base = shape["users"], shape["frame_bytes"]
     sc = BrokerScenario(popularity, seed, shape)
     bursts = [sc.burst() for _ in range(shape["bursts"][popularity])]
-    host = impl in ("host", "host-scalar")
-    route = "python" if impl == "host-scalar" else cutthrough.ROUTE_IMPL
+    host = impl == "host"
+    route = cutthrough.ROUTE_IMPL
     plane_cfg = None if host else DevicePlaneConfig(
         num_user_slots=U, ring_slots=shape["ring_slots"], frame_bytes=base,
         extra_lanes=(shape["extra_lane"],), topic_words=shape["topic_words"],
@@ -1398,7 +1432,6 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
     # the JAX package's forwarding bench widens the in-process pipes the
     # same way, so 16 KB frames are not chopped into 8 KB writes
     prev_window = Memory.set_duplex_window(256 * 1024)
-    prev_route, cutthrough.ROUTE_IMPL = cutthrough.ROUTE_IMPL, route
     t_run = time.perf_counter()
     try:
         broker = await Broker.new(BrokerConfig(
@@ -1434,7 +1467,6 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
             await run.shutdown()
     finally:
         Memory.set_duplex_window(prev_window)
-        cutthrough.ROUTE_IMPL = prev_route
         if os.path.exists(db):
             os.remove(db)
 
@@ -1451,8 +1483,8 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
         check(launches == (0, 0), f"{label}: the host path launched a kernel")
     # which path routed the publishers' frames (every one a Broadcast or a
     # Direct): the cut-through plan on the reference's default host path,
-    # the scalar loops on its twin and under a plane (acquire refuses a
-    # broker with a plane)
+    # the scalar loops under a plane (acquire refuses a broker with a
+    # plane)
     sent = sum(len(f) for b in bursts for f in b.frames)
     want_paths = ({"cutthrough": sent, "residual": 0, "scalar": 0}
                   if impl == "host"
@@ -1464,9 +1496,7 @@ async def broker_run(impl: str, popularity: str, seed: int, device,
         impl=impl, popularity=popularity, route=route,
         cdn_route_batch_frames=paths,
         path="device plane" if plane is not None
-        else "the port's host path (cut-through plane), same machine"
-        if impl == "host" else "the port's host path (scalar twin), same "
-        "machine",
+        else "the port's host path (cut-through plane), same machine",
         users=U, topics=shape["topics"], publishers=shape["publishers"],
         bursts=len(bursts), frames_per_burst=shape["frames"],
         deliveries=len(want), matches_oracle=True,
@@ -1505,20 +1535,23 @@ def plane_stats(plane) -> dict:
 
 def phase_broker(device, shape: dict = BROKER):
     """Phase 8: dense and ragged at uniform and zipf interest, then the
-    same bursts with no device plane: uniform on the reference's default
-    host path (the cut-through plane) and on its scalar twin, zipf on the
-    default. Returns each run's line and the kernels' launches over the
-    device runs' traffic; fails unless each device run launched its
-    kernel."""
+    same bursts with no device plane on the reference's default host path
+    (the cut-through plane); the run on its scalar twin was cut for the
+    script's time limit (the twin is held against the cut-through plane
+    frame for frame on the CPU). Returns each run's line and the kernels'
+    launches over the device runs' traffic; fails unless each device run
+    launched its kernel."""
     rows = {}
     for impl, popularity in (("dense", "uniform"), ("dense", "zipf"),
                              ("ragged", "uniform"), ("ragged", "zipf"),
-                             ("host", "uniform"), ("host-scalar", "uniform"),
-                             ("host", "zipf")):
+                             ("host", "uniform"), ("host", "zipf")):
         # one seed per popularity: every impl takes the same bursts
         seed = 40 + (popularity == "zipf")
         rows[(impl, popularity)] = row = asyncio.run(
             broker_run(impl, popularity, seed, device, shape))
+        if (impl, popularity) == ("host", "uniform"):
+            row["cut"] = ("no host-scalar run, for the script's time limit: "
+                          "the scalar twin is held on the CPU")
         emit("broker", **row)
     for (impl, popularity), row in rows.items():
         if impl == "dense":
@@ -1536,11 +1569,8 @@ def phase_broker(device, shape: dict = BROKER):
     # bursts (reported, not claimed)
     rate = {k: r["delivered_msgs_per_s"] for k, r in rows.items()}
     emit("broker_ratio", **{
-        f"{impl}_{pop}_over_{host}": rate[(impl, pop)] / rate[(host, pop)]
-        for impl in ("dense", "ragged") for pop in ("uniform", "zipf")
-        for host in ("host", "host-scalar") if (host, pop) in rate},
-        host_over_host_scalar_uniform=rate[("host", "uniform")]
-        / rate[("host-scalar", "uniform")])
+        f"{impl}_{pop}_over_host": rate[(impl, pop)] / rate[("host", pop)]
+        for impl in ("dense", "ragged") for pop in ("uniform", "zipf")})
     launches = {"dense": sum(r["delivery_matrix_cuda"] for r in rows.values()),
                 "ragged": sum(r["ragged_delivery_cuda"] for r in rows.values())}
     return rows, launches
@@ -2470,68 +2500,55 @@ async def mesh_broker_runs(devices, shape: dict, seed: int) -> dict:
         emit("mesh_broker", **rows["survivors"])
 
         # 4. the same brokers without a group, joined by host links, run 2's
-        # first burst: on the reference's default host path (the
-        # cut-through plane, on the users' loops and on the broker links)
-        # and on its scalar twin
-        for key, route in (("host-links", None),
-                           ("host-links-scalar", "python")):
-            label = f"mesh broker {key}"
-            t = time.perf_counter()
-            mb = MeshBrokers(f"meshbroker-{key}", shape,
-                             BrokerScenario("uniform", seed + 1, shape),
-                             devices, group=False)
-            prev_route = cutthrough.ROUTE_IMPL
-            cutthrough.ROUTE_IMPL = route or prev_route
-            try:
-                with PlanTally() as tally:
-                    await mb.start()
-                    since = mb.mark()
-                    bursts = [mb.sc.burst(pubs)]
-                    dk.LAUNCHES = 0
-                    paths0 = route_frames()
-                    busy = await mb.publish(label, bursts, pubs)
-                    paths = route_delta(paths0)
-                mb.check_oracle(label, bursts, since)
-                check(dk.LAUNCHES == 0,
-                      f"{label}: the host path launched a kernel")
-                planned = [tally.of(b) for b in mb.brokers]
-                if route is None:
-                    check(all(p["user"] > 0 and p["broker"] > 0
-                              for p in planned), f"{label}: frames planned "
-                          f"through cut-through per broker {planned}: a "
-                          "user loop or a broker link took the scalar twin")
-                else:
-                    check(paths["cutthrough"] == paths["residual"] == 0
-                          and not any(p["user"] or p["broker"]
-                                      for p in planned),
-                          f"{label}: the scalar twin planned {paths}")
-                deliveries = sum(len(b.codes) for b in bursts)
-                rows[key] = dict(
-                    run=f"host links, no group, route "
-                    f"{cutthrough.ROUTE_IMPL}", shards=B, users=U,
-                    topics=shape["topics"], publishers=P,
-                    bursts={"uniform": 1}, frames_per_burst=shape["frames"],
-                    deliveries=deliveries, matches_oracle=True,
-                    fifo_per_publisher_and_lane=True,
-                    delivered_msgs_per_s=deliveries / busy,
-                    **percentiles_ms(mb.latency_ns), busy_s=busy,
-                    host_links=[b.connections.num_brokers
-                                for b in mb.brokers],
-                    cdn_route_batch_frames=paths,
-                    cutthrough_frames_per_broker=planned,
-                    routed_share=0.0, delivery_matrix_cuda=0)
-            finally:
-                cutthrough.ROUTE_IMPL = prev_route
-                await mb.shutdown()
-            rows[key]["run_s"] = time.perf_counter() - t
-            emit("mesh_broker", **rows[key])
+        # first burst on the reference's default host path (the
+        # cut-through plane, on the users' loops and on the broker links);
+        # the pass on the scalar twin was cut for the script's time limit
+        key = "host-links"
+        label = f"mesh broker {key}"
+        t = time.perf_counter()
+        mb = MeshBrokers(f"meshbroker-{key}", shape,
+                         BrokerScenario("uniform", seed + 1, shape),
+                         devices, group=False)
+        try:
+            with PlanTally() as tally:
+                await mb.start()
+                since = mb.mark()
+                bursts = [mb.sc.burst(pubs)]
+                dk.LAUNCHES = 0
+                paths0 = route_frames()
+                busy = await mb.publish(label, bursts, pubs)
+                paths = route_delta(paths0)
+            mb.check_oracle(label, bursts, since)
+            check(dk.LAUNCHES == 0,
+                  f"{label}: the host path launched a kernel")
+            planned = [tally.of(b) for b in mb.brokers]
+            check(all(p["user"] > 0 and p["broker"] > 0 for p in planned),
+                  f"{label}: frames planned through cut-through per broker "
+                  f"{planned}: a user loop or a broker link took the scalar "
+                  "twin")
+            deliveries = sum(len(b.codes) for b in bursts)
+            rows[key] = dict(
+                run=f"host links, no group, route {cutthrough.ROUTE_IMPL}",
+                shards=B, users=U, topics=shape["topics"], publishers=P,
+                bursts={"uniform": 1}, frames_per_burst=shape["frames"],
+                deliveries=deliveries, matches_oracle=True,
+                fifo_per_publisher_and_lane=True,
+                delivered_msgs_per_s=deliveries / busy,
+                **percentiles_ms(mb.latency_ns), busy_s=busy,
+                host_links=[b.connections.num_brokers for b in mb.brokers],
+                cdn_route_batch_frames=paths,
+                cutthrough_frames_per_broker=planned,
+                routed_share=0.0, delivery_matrix_cuda=0,
+                cut="no scalar-twin pass, for the script's time limit: the "
+                    "twin is held on the CPU")
+        finally:
+            await mb.shutdown()
+        rows[key]["run_s"] = time.perf_counter() - t
+        emit("mesh_broker", **rows[key])
         # the fused group over the host links on the same bursts (reported,
         # not claimed)
-        fused = rows["fused"]["delivered_msgs_per_s"]
-        emit("mesh_broker_ratio", fused_over_host_links=fused
-             / rows["host-links"]["delivered_msgs_per_s"],
-             fused_over_host_links_scalar=fused
-             / rows["host-links-scalar"]["delivered_msgs_per_s"])
+        emit("mesh_broker_ratio", fused_over_host_links=rows["fused"][
+            "delivered_msgs_per_s"] / rows[key]["delivered_msgs_per_s"])
     finally:
         Memory.set_duplex_window(prev_window)
 
@@ -2653,10 +2670,16 @@ def wait_pair(procs, d: str, label: str, timeout: float) -> None:
     check(not failed, f"{label}: " + "\n".join(failed))
 
 
+# phase 11's socket-free runs, (popularity, fused): two of the four, one
+# of each popularity and each schedule, cut for the script's time limit
+LOCKSTEP_RUNS = (("uniform", True), ("zipf", False))
+
+
 def lockstep_scripts(shape: dict) -> list:
-    """Phase 11's socket-free runs: per (popularity, schedule) the users
-    (phase 6's, no churn) and ticks of a MeshScenario over the global
-    mesh, with the scenario to check them by."""
+    """Phase 11's socket-free runs: per (popularity, schedule) of
+    ``LOCKSTEP_RUNS`` the users (phase 6's, no churn) and ticks of a
+    MeshScenario over the global mesh, with the scenario to check them
+    by. Each run keeps the seed it had among all four."""
     import pickle
     cfg = dict(num_user_slots=shape["users"], ring_slots=shape["ring_slots"],
                direct_bucket_slots=shape["direct_bucket_slots"],
@@ -2666,6 +2689,8 @@ def lockstep_scripts(shape: dict) -> list:
     runs = []
     for seed, (popularity, fused) in enumerate(
             (p, f) for p in ("uniform", "zipf") for f in (True, False)):
+        if (popularity, fused) not in LOCKSTEP_RUNS:
+            continue
         sc = MeshScenario(popularity, 110 + seed, shape)
         for i in range(shape["initial_users"]):
             sc.add_at((), i % shape["shards"])
@@ -2794,7 +2819,9 @@ def multihost_lockstep(device, shape: dict) -> tuple:
             pair_extract_ms_median=med(3),
             exchange_staging_ms_median=med(5),
             exchange_collective_ms_median=med(6),
-            delivery_matrix_cuda=int(rows[:, 7].sum())))
+            delivery_matrix_cuda=int(rows[:, 7].sum()),
+            cut=f"{len(runs)} of the 4 (popularity, schedule) runs, for "
+                "the script's time limit"))
     return lines, launches, captured, workers_s
 
 
@@ -2803,13 +2830,10 @@ def multihost_plan(shape: dict, seed: int, db: str):
     (half the shards in each process), publishers 0..publishers-1, three
     uniform bursts, every user moved to zipf topics, one zipf burst;
     directs go to users of the other process. Returns the plan, the
-    bursts, the scenario as it stood before the bursts and the uniform
-    topics the zipf move starts from."""
-    import copy
+    bursts and the publishers."""
     B, U = shape["shards"], shape["users"]
     local = B // shape["processes"]
     sc = BrokerScenario("uniform", seed, shape)
-    start = copy.deepcopy(sc)
     proc = (np.arange(U) % B) // local
     pools = [np.flatnonzero(proc != r) for r in range(shape["processes"])]
     pubs = list(range(shape["publishers"]))
@@ -2835,7 +2859,7 @@ def multihost_plan(shape: dict, seed: int, db: str):
         shards=B, num_topics=shape["topics"], db=db, keys=sc.keys,
         topics=topics, first="uniform", frame_bytes=shape["frame_bytes"],
         bursts=plan_bursts)
-    return plan, bursts, start, pubs
+    return plan, bursts, pubs
 
 
 def multihost_check(label: str, outs, bursts, shape: dict) -> None:
@@ -2895,8 +2919,7 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
     """Phase 11 run 2: in each of two processes a MultiHostBrokerGroup
     with a Broker on each local shard and its users injected over the
     Memory transport; the plan's bursts, every delivery against the
-    oracle. Returns the run's line, the plan's pieces for the
-    one-process comparison and the workers' dense launches."""
+    oracle. Returns the run's line and the workers' dense launches."""
     import pickle
     label = "multihost brokers"
     B = shape["shards"]
@@ -2906,7 +2929,7 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
     for suffix in ("", "-wal", "-shm"):
         if os.path.exists(db + suffix):
             os.remove(db + suffix)
-    plan, bursts, start, pubs = multihost_plan(shape, seed, db)
+    plan, bursts, pubs = multihost_plan(shape, seed, db)
     t0 = time.perf_counter()
 
     def args(d):
@@ -3008,60 +3031,7 @@ def multihost_brokers(device, shape: dict, seed: int) -> tuple:
         host_links=links,
         directory_refresh_max_gap_s=[o["directory_max_gap_s"] for o in outs],
         run_s=run_s)
-    return line, (bursts, start, pubs, plan), line["delivery_matrix_cuda"]
-
-
-async def one_process_comparison(device, shape: dict, pieces) -> dict:
-    """The same users and bursts through one process's MeshBrokerGroup on
-    every shard folded onto ``device`` (phase 10's harness at phase 11's
-    shape, fused exchange); reported beside run 2, never claimed."""
-    from pushcdn_tpu_torch.proto.transport.memory import Memory
-    bursts, start, pubs, plan = pieces
-    label = "multihost comparison: one process"
-    B = shape["shards"]
-    prev_window = Memory.set_duplex_window(256 * 1024)
-    t = time.perf_counter()
-    mb = MeshBrokers("multihost-one-process", shape, start, [device] * B,
-                     group=True, fused=True)
-    try:
-        await mb.start()
-        since = mb.mark()
-        busy, by_pop = 0.0, {}
-        for popularity, b in bursts:
-            if popularity != mb.sc.popularity:
-                old = mb.sc.topics
-                mb.sc.popularity = popularity
-                mb.sc.topics = plan["topics"][popularity]
-                mb.apply_topics(old)
-            lat = len(mb.latency_ns)
-            span = await mb.publish(label, [b], pubs)
-            busy += span
-            pop = by_pop.setdefault(popularity, dict(deliveries=0,
-                                                     busy_s=0.0, lat=[]))
-            pop["deliveries"] += len(b.codes)
-            pop["busy_s"] += span
-            pop["lat"] += mb.latency_ns[lat:]
-        mb.check_oracle(label, [b for _, b in bursts], since)
-        deliveries = sum(len(b.codes) for _, b in bursts)
-        check(mb.group.messages_routed == deliveries and not mb.group.disabled,
-              f"{label}: the group routed {mb.group.messages_routed} of "
-              f"{deliveries} deliveries")
-        g = mb.group
-        check(g.native_egress_steps == g.busy_steps > 0,
-              f"{label}: {g.native_egress_steps} of {g.busy_steps} busy "
-              "steps egressed through native.egress_encode")
-        return dict(run=label, shards=B, devices=[str(device)] * B,
-                    deliveries=deliveries, matches_oracle=True,
-                    delivered_msgs_per_s=deliveries / busy,
-                    by_popularity={
-                        p: dict(delivered_msgs_per_s=v["deliveries"]
-                                / v["busy_s"], **percentiles_ms(v["lat"]))
-                        for p, v in by_pop.items()},
-                    **percentiles_ms(mb.latency_ns), busy_s=busy,
-                    run_s=time.perf_counter() - t)
-    finally:
-        await mb.shutdown()
-        Memory.set_duplex_window(prev_window)
+    return line, line["delivery_matrix_cuda"]
 
 
 async def multihost_binaries(device) -> dict:
@@ -3210,13 +3180,12 @@ def phase_multihost(device, shape: dict = MULTIHOST) -> tuple:
     for line in lock_lines:
         emit("multihost", workers_s=workers_s, **line)
     lines["lockstep"] = lock_lines
-    broker_line, pieces, broker_launches = multihost_brokers(
-        device, shape, 111)
+    broker_line, broker_launches = multihost_brokers(device, shape, 111)
+    broker_line["cut"] = ("no run of the same bursts through one process's "
+                          "group of 8 shards beside it, for the script's "
+                          "time limit")
     emit("multihost", **broker_line)
     lines["brokers"] = broker_line
-    cmp_line = asyncio.run(one_process_comparison(device, shape, pieces))
-    emit("multihost", **cmp_line)
-    lines["comparison"] = cmp_line
     bin_line = asyncio.run(multihost_binaries(device))
     emit("multihost", **bin_line)
     lines["binaries"] = bin_line
@@ -4287,8 +4256,7 @@ async def rehome_run(shape: dict = REHOME, seed: int = 150,
     for suffix in ("", "-wal", "-shm"):
         if os.path.exists(db + suffix):
             os.remove(db + suffix)
-    a_pub, a_priv, b_pub, b_priv, marshal, a_metrics, b_metrics = \
-        free_ports(7)
+    a_pub, a_priv, marshal, a_metrics = free_ports(4)
     common = ("--discovery-endpoint", db, "--user-transport", "tcp+tls",
               "--broker-transport", "tcp", "--device-plane",
               "--heartbeat-interval", "0.5",
@@ -4349,6 +4317,10 @@ async def rehome_run(shape: dict = REHOME, seed: int = 150,
 
         drains = [asyncio.create_task(drain(uid, c))
                   for uid, c in enumerate(clients)]
+        # B's ports are picked only now: the clients' 512 connections take
+        # their source ports from the same range, and one of them could
+        # have taken a port picked before they dialed
+        b_pub, b_priv, b_metrics = free_ports(3)
         kids.spawn("b", *common, *endpoints(b_pub, b_priv, b_metrics),
                    env=env, binary="broker")
         b_serving = await kids.wait_for_line("b", "broker serving", label,
@@ -5233,6 +5205,556 @@ def phase_io(plane_row: dict, shape: dict = TOOLING,
 
 
 # ---------------------------------------------------------------------------
+# 18. the production run definition's shape: BLS keys on both links, broker
+# links on TCP, users on TCP+TLS, Redis discovery, dense planes
+# ---------------------------------------------------------------------------
+
+# (a): phase 15 (c)'s users (256 TCP+TLS clients, 3 uniform topics of 256,
+# 16 publishers, one burst of phase 8's mix) over two plane brokers; the
+# marshal's line-table cache holds every user's key (its default of 128
+# would evict them all between the two rounds of connects); (b): phase 16
+# (b)'s consensus cluster, 2 views
+PROD = dict(CLUSTER, users=256, publishers=16, auth_concurrency=64,
+            pk_cache=1024, nodes=1024, views=2, view_timeout_s=30.0,
+            consensus_slots=1024)
+REDIS_SERVERS = ("redis-server", "keydb-server")
+
+
+def redis_probe() -> tuple:
+    """``(server binary or None, verdict)``: Redis discovery runs where the
+    ``redis`` package and a ``redis-server`` or ``keydb-server`` on
+    ``PATH`` both exist; the verdict names what is missing otherwise."""
+    import shutil
+    missing = []
+    try:
+        import redis.asyncio  # noqa: F401
+    except ImportError:
+        missing.append("no redis package")
+    server = next((shutil.which(n) for n in REDIS_SERVERS if shutil.which(n)),
+                  None)
+    if server is None:
+        missing.append("no redis-server or keydb-server on PATH")
+    return (None, "absent: " + ", ".join(missing)) if missing \
+        else (server, "present")
+
+
+class RedisServer:
+    """A throwaway server on a free loopback port, no persistence, started
+    as ``tests/test_redis_discovery.py``'s ``real_redis`` fixture starts
+    one; ``url`` once it answers PING."""
+
+    def __init__(self, binary: str):
+        import socket
+        self.port = free_ports(1)[0]
+        self.proc = subprocess.Popen(
+            [binary, "--port", str(self.port), "--save", "",
+             "--appendonly", "no"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            try:
+                with socket.create_connection(("127.0.0.1", self.port),
+                                              timeout=1) as c:
+                    c.sendall(b"PING\r\n")
+                    if c.recv(7).startswith(b"+PONG"):
+                        break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        else:
+            self.stop()
+            raise SmokeFailure(f"{binary} never answered PING")
+        self.url = f"redis://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def connect_ms(seconds: list) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return dict(p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)))
+
+
+async def prod_binaries_run(shape: dict = PROD, seed: int = 180,
+                            device=None) -> dict:
+    """Phase 18 (a): a marshal and brokers A and B, all ``--scheme
+    bls-bn254``, each broker with a dense plane, broker links on TCP and
+    users on TCP+TLS, discovery on Redis where the probe found it and on a
+    fresh SQLite file otherwise. 256 clients with seeded BLS keys
+    authenticate (64 at a time) and the marshal places them; 16 publish one
+    uniform burst of phase 8's mix, which every client must receive as the
+    oracle says, some of it across the BLS-authenticated A-B link; every
+    client then reconnects once. Beside it a plane-less broker given a
+    ``redis://`` endpoint must exit non-zero naming the missing package,
+    where it is missing. Every check, then its numbers."""
+    from pushcdn_tpu_torch.bin.common import spawn_binary
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import BlsBn254Scheme
+    from pushcdn_tpu_torch.proto.message import Broadcast, Direct
+    from pushcdn_tpu_torch.proto.transport import TcpTls
+    from pushcdn_tpu_torch.proto.util import mnemonic
+
+    label = "prod binaries"
+    U, P = shape["users"], shape["publishers"]
+    t_run = time.perf_counter()
+    pairs = [BlsBn254Scheme.generate_keypair(seed=seed * 1_000_000 + u)
+             for u in range(U)]
+    keygen_s = time.perf_counter() - t_run
+    sc = BrokerScenario("uniform", seed, shape,
+                        keys=[k.public_key for k in pairs])
+    burst = sc.burst()
+    server, redis_verdict = redis_probe()
+    tag = f"prod-{os.getpid()}"
+    db = os.path.join(HERE, ".build", f"{tag}.sqlite")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    redis = RedisServer(server) if server else None
+    discovery = redis.url if redis else db
+    (a_pub, a_priv, b_pub, b_priv, marshal, m_metrics, a_metrics, b_metrics,
+     r_pub, r_priv) = free_ports(10)
+    scheme = ("--scheme", "bls-bn254")
+    common = ("--discovery-endpoint", discovery, "--user-transport",
+              "tcp+tls", "--broker-transport", "tcp", "--device-plane",
+              "--heartbeat-interval", "0.5", *scheme,
+              *(["--device", str(device)] if device else []))
+    env = {"PUSHCDN_DELIVERY_IMPL": "dense"}
+
+    def endpoints(pub, priv, metrics_port=None):
+        return ("--public-advertise-endpoint", f"127.0.0.1:{pub}",
+                "--public-bind-endpoint", f"127.0.0.1:{pub}",
+                "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+                "--private-bind-endpoint", f"127.0.0.1:{priv}",
+                *(("--metrics-bind-endpoint", f"127.0.0.1:{metrics_port}")
+                  if metrics_port else ()))
+    kids = Children(tag)
+    refusal = None
+    clients, drains = [], []
+    try:
+        kids.spawn("a", *common, *endpoints(a_pub, a_priv, a_metrics),
+                   env=env, binary="broker")
+        kids.spawn("b", *common, *endpoints(b_pub, b_priv, b_metrics),
+                   env=env, binary="broker")
+        kids.spawn("marshal", "--discovery-endpoint", discovery,
+                   "--bind-endpoint", f"127.0.0.1:{marshal}",
+                   "--metrics-bind-endpoint", f"127.0.0.1:{m_metrics}",
+                   "--user-transport", "tcp+tls", *scheme,
+                   env={"PUSHCDN_BLS_PK_CACHE": str(shape["pk_cache"])})
+        if redis is None:
+            refusal_log = os.path.join(HERE, ".build", f"{tag}-refusal.log")
+            refusal = spawn_binary(
+                "broker", "--discovery-endpoint", "redis://127.0.0.1:1",
+                *endpoints(r_pub, r_priv), log_path=refusal_log)
+        serving = {}
+        for name in ("a", "b"):
+            serving[name] = await kids.wait_for_line(
+                name, "broker serving", label, timeout=120)
+
+        async def topology(port):
+            reply = await asyncio.to_thread(http_get, port,
+                                            "/debug/topology")
+            return json.loads(reply[1]) if reply and reply[0] == 200 \
+                else None
+
+        async def wait_for(what: str, pred, timeout: float = 60):
+            try:
+                async with asyncio.timeout(timeout):
+                    while not await pred():
+                        kids.check_alive(label)
+                        await asyncio.sleep(0.1)
+            except TimeoutError:
+                raise SmokeFailure(f"{label}: {what} within {timeout} s") \
+                    from None
+
+        async def linked():
+            topos = [await topology(p) for p in (a_metrics, b_metrics)]
+            return all(t and t["num_brokers"] == 1 for t in topos)
+        await wait_for("no A-B link", linked)
+
+        async def marshal_ready():
+            reply = await asyncio.to_thread(http_get, m_metrics, "/readyz")
+            return reply is not None and reply[0] == 200
+        await wait_for("the marshal not ready", marshal_ready)
+
+        def make_clients():
+            return [Client(ClientConfig(
+                marshal_endpoint=f"127.0.0.1:{marshal}", keypair=kp,
+                protocol=TcpTls, scheme=BlsBn254Scheme,
+                subscribed_topics=set(topics)))
+                for kp, topics in zip(pairs, sc.topics)]
+        gate = asyncio.Semaphore(shape["auth_concurrency"])
+
+        async def connect_all(batch) -> tuple:
+            took = [0.0] * len(batch)
+
+            async def one(i, client):
+                async with gate:
+                    t = time.perf_counter()
+                    await client.ensure_initialized()
+                    took[i] = time.perf_counter() - t
+            t = time.perf_counter()
+            async with asyncio.timeout(180):
+                await asyncio.gather(*(one(i, c)
+                                       for i, c in enumerate(batch)))
+            return time.perf_counter() - t, took
+
+        clients = make_clients()
+        cold_s, cold = await connect_all(clients)
+
+        # where the marshal placed each user: the brokers' topologies
+        names = {mnemonic(k.public_key): uid for uid, k in enumerate(pairs)}
+        check(len(names) == U, f"{label}: user mnemonics collide")
+        home = np.full(U, -1, np.int64)
+
+        async def placed():
+            for b, port in enumerate((a_metrics, b_metrics)):
+                topo = await topology(port)
+                for user in (topo or {}).get("users", ()):
+                    home[names[user["key"]]] = b
+            return (home >= 0).all()
+        await wait_for("users missing from the topologies", placed)
+        per_broker = [int((home == b).sum()) for b in (0, 1)]
+        check(min(per_broker) > 0, f"{label}: users per broker "
+              f"{per_broker}: the marshal placed every user on one broker")
+
+        # each broker must hear the other's users' topics over the link
+        want_remote = [len({t for uid in np.flatnonzero(home == 1 - b)
+                            for t in sc.topics[uid]}) for b in (0, 1)]
+
+        async def interest():
+            topos = [await topology(p) for p in (a_metrics, b_metrics)]
+            return all(t and t["interest"]["broker_topics"] >= want_remote[b]
+                       for b, t in enumerate(topos))
+        await wait_for("the brokers' interest not synced", interest)
+
+        got = [[] for _ in range(U)]
+        got_bytes = np.zeros(U, np.int64)
+        seen = [0, 0]
+
+        async def drain(uid, client):
+            while True:
+                messages = await client.receive_messages()
+                now = time.perf_counter_ns()
+                for m in messages:
+                    pub_, seq, _ = TAIL.unpack_from(
+                        m.message, len(m.message) - TAIL.size)
+                    got[uid].append((pub_ * 2 << 32) | seq)
+                    got_bytes[uid] += len(m.message)
+                    seen[0] += 1
+                seen[1] = now
+        drains = [asyncio.create_task(drain(uid, c))
+                  for uid, c in enumerate(clients)]
+
+        async def one_publisher(pub_):
+            client = clients[pub_]
+            for direct, target, head in burst.messages[pub_]:
+                body = head + struct.pack("<q", time.perf_counter_ns())
+                await client.send_message(
+                    Direct(target, body) if direct
+                    else Broadcast(target, body))
+        t0 = time.perf_counter_ns()
+        await asyncio.gather(*(one_publisher(p) for p in range(P)))
+        try:
+            async with asyncio.timeout(120):
+                while seen[0] < len(burst.codes):
+                    kids.check_alive(label)
+                    await asyncio.sleep(0.005)
+        except TimeoutError:
+            raise SmokeFailure(f"{label}: {seen[0]} of {len(burst.codes)} "
+                               "frames arrived") from None
+        busy_s = (seen[1] - t0) / 1e9
+        await asyncio.sleep(0.3)
+        for t in drains:
+            t.cancel()
+        await asyncio.gather(*drains, return_exceptions=True)
+        scraped = {}
+        for name, port in (("marshal", m_metrics), ("a", a_metrics),
+                           ("b", b_metrics)):
+            reply = await asyncio.to_thread(http_get, port, "/metrics")
+            check(reply is not None and reply[0] == 200,
+                  f"{label}: the {name}'s /metrics did not answer")
+            scraped[name] = reply[1]
+
+        # every client reconnects once, through the marshal's warm cache
+        for c in clients:
+            c.close()
+        clients = make_clients()
+        warm_s, warm = await connect_all(clients)
+        reply = await asyncio.to_thread(http_get, m_metrics, "/metrics")
+        check(reply is not None and reply[0] == 200,
+              f"{label}: the marshal's /metrics did not answer")
+        warm_text = reply[1]
+        for c in clients:
+            c.close()
+        clients = []
+        kids.terminate(label)
+        exits = {n: log_fields(kids.logs[n], "device plane exit")
+                 for n in ("a", "b")}
+        if refusal is not None:
+            try:
+                rc = await asyncio.to_thread(refusal.wait, 60)
+            except subprocess.TimeoutExpired:
+                rc = None
+            refusal_out = log_tail(refusal_log)
+    finally:
+        for t in drains:
+            t.cancel()
+        for c in clients:
+            c.close()
+        kids.kill()
+        if refusal is not None and refusal.poll() is None:
+            refusal.kill()
+            refusal.wait()
+        if redis is not None:
+            redis.stop()
+        for suffix in ("", "-wal", "-shm"):
+            if os.path.exists(db + suffix):
+                os.remove(db + suffix)
+
+    lane_bit = np.int64(1) << 32
+    want = np.sort(burst.codes & ~lane_bit)
+    have = np.sort(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [(np.int64(uid) << 40) | np.asarray(c, np.int64)
+           for uid, c in enumerate(got)]))
+    check(have.shape == want.shape and (have == want).all(),
+          f"{label}: the {len(have)} deliveries differ from the oracle's "
+          f"{len(want)}")
+    check(np.array_equal(got_bytes, burst.payload_bytes),
+          f"{label}: received payload bytes differ from the oracle's")
+    receiver = burst.codes >> 40
+    publisher = (burst.codes >> 33) & 0x7F
+    crossed = int((home[receiver] != home[publisher]).sum())
+    check(crossed > 0, f"{label}: no delivery crossed the A-B link")
+    m, mw = scraped["marshal"], warm_text
+    verify_s = metric_sum(mw, "cdn_native_seconds", kernel="bls_verify")
+    cache = {stat: (metric_sum(m, "cdn_bls_pk_cache", stat=stat),
+                    metric_sum(mw, "cdn_bls_pk_cache", stat=stat))
+             for stat in ("hits", "misses", "evictions", "entries")}
+    check(metric_sum(m, "cdn_native_seconds", kernel="bls_verify") > 0,
+          f"{label}: the marshal's cdn_native_seconds{{kernel=\"bls_verify\"}}"
+          " is 0")
+    check(cache["misses"][0] >= U, f"{label}: the marshal's line-table "
+          f"misses {cache['misses'][0]} after {U} cold connects")
+    check(cache["hits"][1] >= U, f"{label}: the marshal's line-table hits "
+          f"{cache['hits'][1]} after {U} reconnects")
+    routed = {n: metric(scraped[n], "cdn_device_messages_routed")
+              for n in ("a", "b")}
+    check(all(v > 0 for v in routed.values()),
+          f"{label}: cdn_device_messages_routed {routed}")
+    traffic = {}
+    for name in ("a", "b"):
+        check(exits[name] is not None, f"{label}: broker {name} logged no "
+              "exit line")
+        traffic[name] = exits[name]["launches"]["delivery_matrix_cuda"] \
+            - serving[name]["launches"]["delivery_matrix_cuda"]
+        check(traffic[name] > 0, f"{label}: broker {name} never launched "
+              "delivery_matrix_cuda after its warm-up")
+    refused = None
+    if refusal is not None:
+        needle = "the 'redis' package is not available"
+        check(rc not in (0, None) and needle in refusal_out
+              and "not ported" not in refusal_out,
+              f"{label}: a broker given redis:// exited {rc}:\n"
+              f"{refusal_out[-3000:]}")
+        refused = dict(exit_code=rc, message=needle)
+    return dict(
+        run="binaries", scheme="bls-bn254", discovery="redis" if redis
+        else "embedded sqlite", redis=redis_verdict,
+        transports={"users": "tcp+tls", "brokers": "tcp"}, clients=U,
+        users_per_broker=per_broker, publishers=P, frames=shape["frames"],
+        deliveries=len(want), crossed_the_link=crossed, matches_oracle=True,
+        delivered_msgs_per_s=len(want) / busy_s, busy_s=busy_s,
+        keygen_s=keygen_s, connect_s={"cold": cold_s, "warm": warm_s},
+        connect_ms={"cold": connect_ms(cold), "warm": connect_ms(warm)},
+        marshal_bls_verify_s=verify_s,
+        marshal_pk_cache={k: {"after_cold": v[0], "after_warm": v[1]}
+                          for k, v in cache.items()},
+        messages_routed=routed, redis_refusal=refused,
+        delivery_matrix_cuda=sum(traffic.values()),
+        traffic_launches=traffic, run_s=time.perf_counter() - t_run)
+
+
+class _Connected:
+    """A ``Cluster`` whose ``client(seed=...)`` hands out the clients this
+    phase already connected, so that the consensus driver runs on them."""
+
+    def __init__(self, cluster, clients: dict):
+        self._cluster = cluster
+        self._clients = clients
+
+    def client(self, seed: int, topics=(), protocol=None):
+        return self._clients[seed]
+
+    def __getattr__(self, name):
+        return getattr(self._cluster, name)
+
+
+async def prod_consensus_run(shape: dict = PROD, device=None) -> dict:
+    """Phase 18 (b): ``production_run_def()`` must pick the BLS scheme on
+    this host; then phase 16 (b)'s consensus cluster with BLS keys: two
+    brokers with 1024-slot dense planes (no bypass), the 1024 nodes
+    connected concurrently, half onto each broker, beside one node whose
+    signature is forged; the marshal's batching verifier must batch, the
+    forged node be refused and every other admitted; then the views. Every
+    check, then its numbers."""
+    from pushcdn_tpu_torch.broker.device_plane import DevicePlaneConfig
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.ops import delivery_kernel as dk
+    from pushcdn_tpu_torch.ops import ragged_delivery as rd
+    from pushcdn_tpu_torch.proto import trace as trace_mod
+    from pushcdn_tpu_torch.proto.crypto.signature import (
+        BlsBn254Scheme,
+        KeyPair,
+    )
+    from pushcdn_tpu_torch.proto.def_ import production_run_def
+    from pushcdn_tpu_torch.testing import Cluster
+    from pushcdn_tpu_torch.testing.consensus import (
+        ConsensusConfig,
+        percentile,
+        run_consensus,
+    )
+
+    label = "prod consensus"
+    prod = production_run_def()
+    check(prod.user_def.scheme is BlsBn254Scheme
+          and prod.broker_def.scheme is BlsBn254Scheme,
+          f"{label}: production_run_def() picked {prod.user_def.scheme}: "
+          "the BLS library did not build here")
+    n, views = shape["nodes"], shape["views"]
+    cfg = ConsensusConfig(num_nodes=n, num_views=views,
+                          view_timeout_s=shape["view_timeout_s"],
+                          trace=False)
+    trace_mod.set_log_path(None)
+    t0 = time.perf_counter()
+    cluster = await Cluster(
+        num_brokers=2, scheme=BlsBn254Scheme, device=device,
+        device_plane=DevicePlaneConfig(
+            num_user_slots=shape["consensus_slots"], bypass_max_items=0,
+            delivery_impl="dense")).start()
+    clients = {}
+    try:
+        start_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        for i in range(n):
+            c = cluster.client(seed=cfg.client_seed_base + i,
+                               topics=[cfg.topic],
+                               protocol=cfg.node_protocol(i))
+            c._sampler.every = 0
+            clients[cfg.client_seed_base + i] = c
+        keygen_s = time.perf_counter() - t
+        honest = BlsBn254Scheme.generate_keypair(seed=cfg.client_seed_base
+                                                 + n)
+        thief = BlsBn254Scheme.generate_keypair(seed=cfg.client_seed_base
+                                                + n + 1)
+        forged = Client(ClientConfig(
+            marshal_endpoint=cluster.marshal_endpoint,
+            keypair=KeyPair(public_key=honest.public_key,
+                            private_key=thief.private_key),
+            protocol=cfg.node_protocol(0), scheme=BlsBn254Scheme,
+            subscribed_topics={cfg.topic}))
+
+        async def forged_attempt() -> bool:
+            try:
+                await asyncio.wait_for(forged._connect_once(), 30)
+            except Exception:
+                return True
+            return False
+
+        nodes = list(clients.values())
+        t = time.perf_counter()
+        refused = None
+        for b in range(2):
+            await cluster.place_on(b)
+            async with asyncio.timeout(180):
+                results = await asyncio.gather(
+                    *(c.ensure_initialized() for c in nodes[b::2]),
+                    *([forged_attempt()] if b == 0 else []))
+            if b == 0:
+                refused = results[-1]
+        connect_s = time.perf_counter() - t
+        bv = cluster.marshal.batch_verifier
+        batching = dict(batches=bv.batches, batched_items=bv.batched_items,
+                        singles=bv.singles, pk_cache=bv.cache_stats())
+        users = [b.connections.num_users for b in cluster.brokers]
+        before = (dk.LAUNCHES, rd.LAUNCHES)
+        t = time.perf_counter()
+        run = await run_consensus(_Connected(cluster, clients), cfg,
+                                  drain_s=10.0)
+        run_s = time.perf_counter() - t
+        launches = (dk.LAUNCHES - before[0], rd.LAUNCHES - before[1])
+        planes = [b.device_plane for b in cluster.brokers]
+    finally:
+        for c in clients.values():
+            c.close()
+        await cluster.stop()
+    check(refused is True, f"{label}: the forged node was admitted")
+    check(users == [n // 2, n // 2], f"{label}: nodes per broker {users}")
+    check(batching["batches"] > 0
+          and batching["batched_items"] > batching["batches"],
+          f"{label}: the marshal's batching verifier read {batching}")
+    check(run.completed == views and run.timeouts == 0,
+          f"{label}: {run.completed} of {views} views completed, "
+          f"{run.timeouts} timed out")
+    check(len(run.proposal_delivery_s) == views * n,
+          f"{label}: {len(run.proposal_delivery_s)} of {views * n} "
+          "proposal deliveries")
+    quorum = cfg.effective_quorum()
+    check(quorum == 2 * n // 3 + 1 and all(v.votes >= quorum
+                                           for v in run.views),
+          f"{label}: a leader short of a quorum of {quorum}: "
+          f"{[v.votes for v in run.views]}")
+    check(all(p.messages_routed > 0 and not p.disabled
+              and p.delivery_impl == "dense" for p in planes),
+          f"{label}: planes routed {[p.messages_routed for p in planes]}")
+    check(launches[0] > 0, f"{label}: the dense kernel never launched")
+
+    def ms(samples, q):
+        return percentile(sorted(samples), q) * 1e3
+
+    done = sorted(v.completion_s for v in run.views)
+    return dict(
+        run="consensus", scheme="bls-bn254", impl="dense", nodes=n,
+        views=views, quorum=quorum, brokers=2, nodes_per_broker=users,
+        bypass_max_items=0, forged_refused=refused,
+        batch_verifier=batching,
+        mean_batch=batching["batched_items"] / batching["batches"],
+        start_s=start_s, keygen_s=keygen_s, connect_s=connect_s,
+        run_s=run_s, completed=run.completed, timeouts=run.timeouts,
+        votes_at_completion=[v.votes for v in run.views],
+        proposal_deliveries=len(run.proposal_delivery_s),
+        vote_deliveries=len(run.vote_delivery_s),
+        view_completion_ms_p50=ms(done, 0.50),
+        view_completion_ms_p99=ms(done, 0.99),
+        messages_routed=[p.messages_routed for p in planes],
+        delivery_matrix_cuda=launches[0], ragged_delivery_cuda=launches[1])
+
+
+def phase_prod(shape: dict = PROD, device=None) -> int:
+    """Phase 18: (a) the production shape as processes, (b) in process.
+    One ``prod`` line per run; returns the dense kernel's launches over the
+    phase's traffic."""
+    seconds = {}
+    t = time.perf_counter()
+    a = asyncio.run(prod_binaries_run(shape, device=device))
+    emit("prod", **a)
+    seconds["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b = asyncio.run(prod_consensus_run(shape, device))
+    emit("prod", **b)
+    seconds["b"] = time.perf_counter() - t
+    emit("prod", run="phase 18 seconds", **seconds,
+         total=sum(seconds.values()))
+    return a["delivery_matrix_cuda"] + b["delivery_matrix_cuda"]
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5294,27 +5816,37 @@ def main() -> int:
 
     lap(1)
     # 2. build (one nvcc per source, started together; the native host
-    # routines with g++ beside them)
+    # routines and the BLS library with g++ beside them)
     from pushcdn_tpu_torch import native
+    from pushcdn_tpu_torch.native import bls
     t0 = time.perf_counter()
 
     def build_native():
         t = time.perf_counter()
         return native.build(), time.perf_counter() - t
 
-    with ThreadPoolExecutor(1) as pool:
+    def build_bls():
+        t = time.perf_counter()
+        return bls.available(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:
         host = pool.submit(build_native)
+        pairing = pool.submit(build_bls)
         libs = _build.build()
         kernels_s = time.perf_counter() - t0
         try:
             host_libs, native_s = host.result()
         except RuntimeError as e:
             raise SmokeFailure(str(e)) from None
+        bls_ok, bls_s = pairing.result()
+    check(bls_ok, f"the BLS library failed to build: {native.build_errors()}")
+    check(bls.self_test() == 0, "the BLS library's self-test failed")
     emit("build", seconds=time.perf_counter() - t0, kernels_seconds=kernels_s,
-         native_seconds=native_s,
+         native_seconds=native_s, bls_seconds=bls_s,
          libraries=[os.path.relpath(p, HERE) for p in libs],
          native_libraries=[os.path.relpath(p, HERE)
-                           for p in host_libs.values()])
+                           for p in host_libs.values()],
+         bls_library=os.path.relpath(bls.loaded_path(), HERE))
 
     lap(2)
     # 3. kernels vs plain
@@ -5524,14 +6056,20 @@ def main() -> int:
     launches["dense"] += io["dense"]
     launches["ragged"] += io["ragged"]
     lap(17)
+    # 18. the production run definition's shape: BLS keys, TCP broker
+    # links, TCP+TLS users, Redis discovery where there is a server, dense
+    # planes; the brokers' and the consensus cluster's launches over their
+    # traffic join the kernel line's
+    launches["dense"] += phase_prod()
+    lap(18)
     emit("phase_seconds", **{str(k): v for k, v in sorted(laps.items())},
          total=sum(laps.values()))
 
     # the kernel line reads the uniform slice tick; the launches are the
     # slice phase's, the mesh phase's MeshGroup runs', the broker's, the
     # broker processes' of the cluster phase, the mesh-broker group runs',
-    # the multi-host phase's worker and broker processes', phase 15's,
-    # phase 16's and phase 17's
+    # the multi-host phase's worker and broker processes', and phases
+    # 15-18's
     kernels = []
     for impl, name, source, replaces in (
             ("dense", "delivery_matrix_cuda",

@@ -90,7 +90,7 @@ DELIVERY_IMPLS = ("auto", "dense", "ragged")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pushcdn-broker", description=__doc__)
     p.add_argument("--discovery-endpoint", required=True,
-                   help="sqlite path")
+                   help="sqlite path or redis:// URL")
     p.add_argument("--public-advertise-endpoint", default="local_ip:1738")
     p.add_argument("--public-bind-endpoint", default="0.0.0.0:1738")
     p.add_argument("--private-advertise-endpoint", default="local_ip:1739")
@@ -107,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bytes (default 1 GiB, parity broker.rs:67-72)")
     p.add_argument("--global-permits", action="store_true")
     p.add_argument("--scheme", default="ed25519",
-                   help="signature scheme: ed25519")
+                   help="signature scheme: ed25519 | bls-bn254")
     p.add_argument("--heartbeat-interval", type=float, default=10.0,
                    help="discovery heartbeat cadence in seconds; chaos "
                         "drills shrink it so a killed broker ages out of "

@@ -38,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "from this seed instead of ourselves (two clients "
                         "messaging each other)")
     p.add_argument("--scheme", default="ed25519",
-                   help="signature scheme: ed25519")
+                   help="signature scheme: ed25519 | bls-bn254")
     p.add_argument("--metrics-bind-endpoint", default=None,
                    help="serve /metrics + /healthz + /readyz (readiness = "
                         "live broker link)")

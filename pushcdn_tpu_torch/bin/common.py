@@ -2,11 +2,11 @@
 reference's RUST_LOG_FORMAT=json switch, cdn-broker/src/binaries/broker.rs:80-91),
 transport/scheme lookup by name, seeded keys.
 
-A copy of ``pushcdn_tpu.bin.common`` cut to what the port has: the
-transports are ``memory``, ``tcp``, ``tcp+tls`` and ``quic``, the scheme is
-``ed25519`` (no BLS), and discovery is the embedded SQLite file (no Redis;
-ROADMAP.md, Queue A). ``--io-impl`` and ``--pump`` select the io_uring
-engine and the fused native pump as the reference's flags do.
+The port's copy of ``pushcdn_tpu.bin.common``: the transports are
+``memory``, ``tcp``, ``tcp+tls`` and ``quic``, the schemes ``ed25519`` and
+``bls-bn254``, and discovery is Redis for a ``redis://`` endpoint and the
+embedded SQLite file otherwise. ``--io-impl`` and ``--pump`` select the
+io_uring engine and the fused native pump as the reference's flags do.
 """
 
 from __future__ import annotations
@@ -20,19 +20,21 @@ import sys
 from typing import Optional, Type
 
 from pushcdn_tpu_torch.proto.crypto.signature import (
+    BlsBn254Scheme,
     Ed25519Scheme,
     KeyPair,
     SignatureScheme,
 )
 from pushcdn_tpu_torch.proto.def_ import RunDef, ConnectionDef
 from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+from pushcdn_tpu_torch.proto.discovery.redis import Redis
 from pushcdn_tpu_torch.proto.topic import TopicSpace
 from pushcdn_tpu_torch.proto.transport import Memory, Tcp, TcpTls
 from pushcdn_tpu_torch.proto.transport.base import Protocol
 from pushcdn_tpu_torch.proto.transport.quic import Quic
 
 TRANSPORTS = {"tcp": Tcp, "tcp+tls": TcpTls, "quic": Quic, "memory": Memory}
-SCHEMES = {"ed25519": Ed25519Scheme}
+SCHEMES = {"ed25519": Ed25519Scheme, "bls-bn254": BlsBn254Scheme}
 
 
 class _JsonFormatter(logging.Formatter):
@@ -168,27 +170,27 @@ def transport_by_name(name: str) -> Type[Protocol]:
 
 def scheme_by_name(name: str) -> Type[SignatureScheme]:
     try:
-        return SCHEMES[name]
+        scheme = SCHEMES[name]
     except KeyError:
-        raise SystemExit(
-            f"unknown scheme {name!r}; pick from {sorted(SCHEMES)} (the "
-            "bls-bn254 scheme is not ported yet: ROADMAP.md, Queue A)")
+        raise SystemExit(f"unknown scheme {name!r}; pick from {sorted(SCHEMES)}")
+    if scheme is BlsBn254Scheme and not BlsBn254Scheme.available():
+        raise SystemExit("bls-bn254 requested but the native BLS library "
+                         "failed to compile on this host")
+    return scheme
 
 
 def run_def_from_args(broker_transport: str, user_transport: str,
                       discovery_endpoint: str, num_topics: int,
                       global_permits: bool = False,
                       scheme: str = "ed25519") -> RunDef:
-    if discovery_endpoint.startswith("redis://"):
-        raise SystemExit("Redis discovery is not ported yet (ROADMAP.md, "
-                         "Queue A); pass a SQLite file path")
+    discovery = Redis if discovery_endpoint.startswith("redis://") else Embedded
     sig = scheme_by_name(scheme)
     return RunDef(
         broker_def=ConnectionDef(protocol=transport_by_name(broker_transport),
                                  scheme=sig),
         user_def=ConnectionDef(protocol=transport_by_name(user_transport),
                                scheme=sig),
-        discovery=Embedded,
+        discovery=discovery,
         topics=TopicSpace.range(num_topics),
         global_permits=global_permits,
     )

@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=1024 * 1024 * 1024)
     p.add_argument("--global-permits", action="store_true")
     p.add_argument("--scheme", default="ed25519",
-                   help="signature scheme: ed25519")
+                   help="signature scheme: ed25519 | bls-bn254")
     add_io_impl_flag(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p

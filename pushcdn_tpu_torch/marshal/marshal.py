@@ -5,11 +5,6 @@ bind the user-facing listener, accept-loop, and for each connection run
 ``MarshalAuth::verify_user`` under a 5 s timeout then soft-close. The
 marshal is stateless (all state lives in discovery) and horizontally
 scalable.
-
-A copy of ``pushcdn_tpu.marshal.marshal`` without the BLS key-cache
-gauges and the batching signature verifier: the BLS scheme, the only one
-that batches, is not copied yet, so every signature is checked inline
-with ``scheme.verify``.
 """
 
 from __future__ import annotations
@@ -60,6 +55,10 @@ class Marshal:
         # /readyz state: cached discovery probe
         self._discovery_probe: tuple = (False, "not probed yet")
         self._discovery_probe_at: Optional[float] = None
+        # amortize concurrent pairing checks under connection storms
+        # (no-op pass-through for schemes without verify_batch)
+        from pushcdn_tpu_torch.proto.crypto.batch import BatchVerifier
+        self.batch_verifier = BatchVerifier(config.run_def.user_def.scheme)
 
     @classmethod
     async def new(cls, config: MarshalConfig) -> "Marshal":
@@ -71,8 +70,14 @@ class Marshal:
         self.certificate = generate_cert_from_ca(ca_cert, ca_key)
         self.limiter = Limiter(global_pool_bytes=config.global_memory_pool_size)
         if config.metrics_bind_endpoint:
+            # the marshal is the process doing BLS verifications, so it
+            # exports the pk line-table cache counters alongside the core
+            # gauges (the hook only PEEKS at an already-loaded library:
+            # for non-BLS schemes the native lib never loads and the
+            # gauges stay zero — no compile can fire inside /metrics).
             # Endpoint first, listener second: /readyz is probe-able (and
             # false) before the marshal can actually accept.
+            metrics_mod.register_bls_pk_cache_metrics()
             self._metrics_server = await metrics_mod.serve_metrics(
                 config.metrics_bind_endpoint)
             health_mod.register_readiness("listener", self._check_listener)
@@ -128,7 +133,8 @@ class Marshal:
             async with asyncio.timeout(self.config.auth_timeout_s):
                 public_key, permit = await marshal_auth.verify_user(
                     connection, self.discovery,
-                    self.run_def.user_def.scheme)
+                    self.run_def.user_def.scheme,
+                    verifier=self.batch_verifier)
             await connection.soft_close()
         except (Error, asyncio.TimeoutError) as exc:
             logger.info("marshal auth failed: %r", exc)

@@ -4,8 +4,9 @@ encoder, the device plane's egress encoder and the batch decoder. The
 cut-through route plan (``route_plan.cpp``) binds in ``routeplan``, the
 io_uring shim (``io_uring.cpp``) in ``uring``, the fused pump
 (``pump.cpp``, which includes ``io_uring.cpp`` and ``route_plan.cpp``) in
-``pump`` and the syscall-counting interposer (``syscount.cpp``) in
-``syscount``.
+``pump``, the syscall-counting interposer (``syscount.cpp``) in
+``syscount`` and the BLS-over-BN254 library (``bls_bn254.cpp``, which
+includes ``bls_generated.inc``) in ``bls``.
 
 The port's own copy of ``pushcdn_tpu.native``: it builds from the sources
 in this directory and never from the JAX package's. These are host
@@ -52,9 +53,11 @@ _tried = False
 _build_errors: dict = {}
 
 
-# sources that a library's translation unit #includes from this directory
-# (``-I`` on SRC_DIR): their bytes key the library's name too
-INCLUDES = {"pump": ("io_uring", "route_plan")}
+# files that a library's translation unit #includes from this directory
+# (``-I`` on SRC_DIR, or beside the source): their bytes key the library's
+# name too
+INCLUDES = {"pump": ("io_uring.cpp", "route_plan.cpp"),
+            "bls_bn254": ("bls_generated.inc",)}
 
 
 def library_path(name: str, extra_flags: tuple = (), tag: str = "") -> Path:
@@ -63,7 +66,7 @@ def library_path(name: str, extra_flags: tuple = (), tag: str = "") -> Path:
     a CPython-API library)."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cpp").read_bytes())
     for dep in INCLUDES.get(name, ()):
-        h.update((SRC_DIR / f"{dep}.cpp").read_bytes())
+        h.update((SRC_DIR / dep).read_bytes())
     h.update(" ".join(CXX_FLAGS + tuple(extra_flags)).encode())
     suffix = f"-{tag}" if tag else ""
     return BUILD_DIR / f"libpushcdn_{name}-{h.hexdigest()[:16]}{suffix}.so"

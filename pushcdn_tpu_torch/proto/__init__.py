@@ -3,8 +3,9 @@ crypto, broker auth, discovery, config registry.
 
 The port's copy of ``pushcdn_tpu.proto``: the wire format, the Memory,
 TCP, TCP+TLS and QUIC transports, the io_uring engine and the fused
-native pump, user and marshal auth, the embedded discovery store. Redis
-discovery and BLS keys are not copied yet (ROADMAP.md, Queue A).
+native pump, user and marshal auth with Ed25519 or BLS-over-BN254 keys
+and the batching verifier, the embedded (SQLite) and Redis discovery
+stores.
 """
 
 MAX_MESSAGE_SIZE = (2**32 - 1) // 8

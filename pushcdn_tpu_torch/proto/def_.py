@@ -6,9 +6,6 @@ with compile-time trait generics (``RunDef``/``ConnectionDef``) and cargo
 features; here it is plain config objects — everything the reference selects
 at compile time is selected by constructing one of these (SURVEY.md §7:
 "everything it does with trait generics becomes a small typed registry").
-
-Only ``testing_run_def`` is copied: ``production_run_def`` wires BLS keys,
-TCP, TCP+TLS and Redis discovery, none of which the port has yet.
 """
 
 from __future__ import annotations
@@ -20,10 +17,13 @@ from typing import Callable, Optional, Type
 from pushcdn_tpu_torch.proto.crypto.signature import DEFAULT_SCHEME, SignatureScheme
 from pushcdn_tpu_torch.proto.discovery.base import DiscoveryClient
 from pushcdn_tpu_torch.proto.discovery.embedded import Embedded
+from pushcdn_tpu_torch.proto.discovery.redis import Redis
 from pushcdn_tpu_torch.proto.message import Message
 from pushcdn_tpu_torch.proto.topic import TEST_TOPIC_SPACE, TopicSpace
 from pushcdn_tpu_torch.proto.transport.base import Protocol
 from pushcdn_tpu_torch.proto.transport.memory import Memory
+from pushcdn_tpu_torch.proto.transport.tcp import Tcp
+from pushcdn_tpu_torch.proto.transport.tcp_tls import TcpTls
 
 
 class HookResult(enum.Enum):
@@ -68,6 +68,21 @@ class RunDef:
     global_permits: bool = False        # permits valid at any broker
     strong_consistency: bool = True     # push syncs immediately on user join
                                         # (broker default feature)
+
+
+def production_run_def(topics: Optional[TopicSpace] = None) -> RunDef:
+    """Parity ``ProductionRunDef`` (def.rs:101-136): BLS-over-BN254 keys,
+    broker↔broker plain TCP, user↔broker TCP+TLS, Redis/KeyDB discovery.
+    Falls back to Ed25519 if the native BLS library can't compile on this
+    host (the seam keeps callers agnostic)."""
+    from pushcdn_tpu_torch.proto.crypto.signature import BlsBn254Scheme
+    scheme = BlsBn254Scheme if BlsBn254Scheme.available() else DEFAULT_SCHEME
+    return RunDef(
+        broker_def=ConnectionDef(protocol=Tcp, scheme=scheme),
+        user_def=ConnectionDef(protocol=TcpTls, scheme=scheme),
+        discovery=Redis,
+        topics=topics or TopicSpace.range(256),
+    )
 
 
 def testing_run_def(broker_protocol: Type[Protocol] = Memory,

@@ -67,8 +67,10 @@ class BrokerIdentifier:
 class DiscoveryClient(abc.ABC):
     """The membership/permits/whitelist store interface (discovery/mod.rs:28-76).
 
-    Implementation: :class:`~pushcdn_tpu_torch.proto.discovery.embedded.Embedded`
-    (SQLite; local/testing). The Redis (KeyDB) client is not copied yet.
+    Implementations: :class:`~pushcdn_tpu_torch.proto.discovery.embedded.Embedded`
+    (SQLite; local/testing) and
+    :class:`~pushcdn_tpu_torch.proto.discovery.redis.Redis` (KeyDB; production,
+    gated on a redis client being available).
     """
 
     @classmethod

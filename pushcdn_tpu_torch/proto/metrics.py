@@ -594,6 +594,21 @@ def update_native_telemetry(totals: Optional[dict]) -> None:
 # pushing gauge updates from their pump loops.
 PRE_RENDER_HOOKS: list = []
 
+# BLS per-public-key Miller line-table cache (native/bls_bn254.cpp): the
+# auth hot path's amortization state. One labeled gauge family (not
+# counters, because the native library owns the monotonic values and a
+# cache clear legitimately zeroes them); module attributes are the cached
+# children so existing call sites keep working.
+BLS_PK_CACHE = Gauge("cdn_bls_pk_cache",
+                     "BLS verify line-table cache state "
+                     "(stat=hits|misses|evictions|entries|bytes)",
+                     labels=("stat",))
+BLS_PK_CACHE_HITS = BLS_PK_CACHE.labels(stat="hits")
+BLS_PK_CACHE_MISSES = BLS_PK_CACHE.labels(stat="misses")
+BLS_PK_CACHE_EVICTIONS = BLS_PK_CACHE.labels(stat="evictions")
+BLS_PK_CACHE_ENTRIES = BLS_PK_CACHE.labels(stat="entries")
+BLS_PK_CACHE_BYTES = BLS_PK_CACHE.labels(stat="bytes")
+
 # Client-side live gap detector (ISSUE 20): the subscriber's view of
 # the frame-fate ledger. A gap EVENT is a sequence hole opening in a
 # stream the client follows (frames skipped past); a HEAL is a late
@@ -634,16 +649,17 @@ E2E_LATENCY = Histogram(
 
 # Monotonic-clock accounting around the native seams we own: one
 # perf_counter pair per *batch-level* call (route plan per chunk, egress
-# encode per fan-out batch and per delivery matrix of a device step), so
-# a scrape answers "is the loop hot in planning or egress" without a
-# debugger.
+# encode per fan-out batch and per delivery matrix of a device step, BLS
+# verify per handshake), so a scrape answers "is the loop hot in planning,
+# egress, or auth" without a debugger.
 NATIVE_SECONDS = Counter(
     "cdn_native_seconds",
     "Cumulative wall-clock seconds inside instrumented native seams "
-    "(kernel=route_plan|egress_encode)",
+    "(kernel=route_plan|egress_encode|bls_verify)",
     labels=("kernel",))
 NATIVE_PLAN_SECONDS = NATIVE_SECONDS.labels(kernel="route_plan")
 NATIVE_EGRESS_SECONDS = NATIVE_SECONDS.labels(kernel="egress_encode")
+NATIVE_BLS_SECONDS = NATIVE_SECONDS.labels(kernel="bls_verify")
 
 # Per-task sampling profiler (ISSUE 5): every tick the profiler walks
 # asyncio.all_tasks() and attributes one sample per live task to its task
@@ -725,6 +741,33 @@ def _refresh_build_info() -> None:
                       backend=current[2], device_kind=current[3],
                       native=current[4]).set(1)
     _build_info_last = current
+
+
+def _refresh_bls_pk_cache() -> None:
+    from pushcdn_tpu_torch.native import bls
+    # peek, never provoke: pk_cache_stats() would lazily COMPILE the
+    # native library (a multi-second synchronous g++ run) and this hook
+    # runs inside the asyncio /metrics handler — a process that never
+    # verified a BLS signature keeps the gauges at zero instead
+    if not bls.loaded():
+        return
+    stats = bls.pk_cache_stats()
+    if stats is None:  # native library unavailable: gauges stay zero
+        return
+    BLS_PK_CACHE_HITS.set(stats["hits"])
+    BLS_PK_CACHE_MISSES.set(stats["misses"])
+    BLS_PK_CACHE_EVICTIONS.set(stats["evictions"])
+    BLS_PK_CACHE_ENTRIES.set(stats["entries"])
+    BLS_PK_CACHE_BYTES.set(stats["bytes"])
+
+
+def register_bls_pk_cache_metrics() -> None:
+    """Idempotent: pull the native cache counters into the gauges on
+    every render. Registered by processes that actually verify BLS
+    signatures (the marshal; brokers via their auth path) — a process
+    that never loads the native library keeps the hook a no-op."""
+    if _refresh_bls_pk_cache not in PRE_RENDER_HOOKS:
+        PRE_RENDER_HOOKS.append(_refresh_bls_pk_cache)
 
 
 _TOP_K_QUEUE_PEERS = 8

@@ -64,6 +64,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 # the window the drain check probes
 DRAIN_GRACE_S = 2.0
 
+# how long broker0's metrics endpoint may take to give its first answer:
+# the JAX runner's 8 s, and longer for a ``--device-plane`` broker, which
+# imports torch and brings CUDA up before it serves one (a slow card host
+# took more than 8 s)
+STARTUP_WINDOW_S = 8.0
+PLANE_STARTUP_WINDOW_S = 45.0
+
+
+def startup_window_s(device_plane: bool) -> float:
+    return PLANE_STARTUP_WINDOW_S if device_plane else STARTUP_WINDOW_S
+
 
 def spawn(name: str, *args: str, env_extra=None,
           log_path=None) -> subprocess.Popen:
@@ -91,22 +102,28 @@ def http_get(port: int, path: str, timeout: float = 2.0):
         return None
 
 
-def wait_http(port: int, path: str, wait_s: float = 8.0):
-    """Poll until the endpoint answers at all; returns (status, body)."""
+def wait_http(port: int, path: str, wait_s: float = STARTUP_WINDOW_S,
+              alive=None):
+    """Poll until the endpoint answers at all; returns (status, body).
+    Gives up early once ``alive()`` says the process is gone."""
     deadline = time.time() + wait_s
     while time.time() < deadline:
         res = http_get(port, path, timeout=1.0)
         if res is not None:
             return res
+        if alive is not None and not alive():
+            return None
         time.sleep(0.05)
     return None
 
 
-def check_readiness_before_bind(port: int) -> bool:
+def check_readiness_before_bind(port: int, device_plane: bool = False,
+                                alive=None) -> bool:
     """broker0 starts its metrics endpoint BEFORE binding listeners (and
-    holds the bind for PUSHCDN_BIND_DELAY_S): the first /readyz answer
-    must be 503 with the listeners check failing."""
-    res = wait_http(port, "/readyz")
+    holds the bind for PUSHCDN_BIND_DELAY_S): the first /readyz answer,
+    within ``startup_window_s(device_plane)``, must be 503 with the
+    listeners check failing."""
+    res = wait_http(port, "/readyz", startup_window_s(device_plane), alive)
     if res is None:
         print("[cluster] FAIL: broker0 /readyz never answered during startup")
         return False
@@ -1515,8 +1532,9 @@ def main() -> int:
         for i in range(1 if late_broker1 else 2):
             procs.append((f"broker{i}", spawn_broker(i, first_boot=True)))
             if i == 0:
-                ok = check_readiness_before_bind(metrics_ports["broker0"]) \
-                    and ok
+                ok = check_readiness_before_bind(
+                    metrics_ports["broker0"], args.device_plane,
+                    alive=lambda p=procs[-1][1]: p.poll() is None) and ok
         time.sleep(1.5)  # brokers register + mesh up
         procs.append(("marshal", spawn_marshal()))
         time.sleep(1.0)

@@ -52,3 +52,14 @@ def jax_pump_available(tries: int = 40, wait_s: float = 0.25) -> bool:
     def reset():
         pump._lib, pump._tried = None, False
     return _retry(pump.available, reset, tries, wait_s)
+
+
+def jax_bls_available(tries: int = 40, wait_s: float = 0.25) -> bool:
+    """Whether ``pushcdn_tpu.native.bls`` loads, retrying a load that raced
+    another process's build (JAX's build writes straight to
+    ``.build/libpushcdn_bls.so``)."""
+    from pushcdn_tpu.native import bls
+
+    def reset():
+        bls._lib, bls._tried = None, False
+    return _retry(bls.available, reset, tries, wait_s)

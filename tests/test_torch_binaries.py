@@ -11,8 +11,10 @@ each of ``tcp``, ``tcp+tls`` and ``quic``; the io knobs select the
 io_uring engine as the JAX binaries do (and, under a kernel that denies
 io_uring, an explicit ``uring`` exits naming the errno); and the broker
 refuses what it cannot serve: a plane on CUDA where there is none,
-delivery impls, schemes, transports and discovery stores the port lacks,
-and the mesh-group flags the JAX binary refuses; and the three chaos
+delivery impls, schemes and transports it does not know, a ``redis://``
+store without the ``redis`` package, and the mesh-group flags the JAX
+binary refuses; a BLS marshal and plane broker serve BLS clients over
+TCP+TLS (the production run definition's shape); and the three chaos
 binaries (``bad_broker``, ``bad_connector``, ``bad_sender``) each run a
 few cycles against a marshal and broker."""
 
@@ -144,7 +146,8 @@ async def test_broker_binary_device_plane_end_to_end(tmp_path):
      "CUDA is not available"),
     (("--device-plane", "--device", "cpu"),
      {"PUSHCDN_DELIVERY_IMPL": "pallas"}, "PUSHCDN_DELIVERY_IMPL='pallas'"),
-    (("--scheme", "bls-bn254"), {}, "ROADMAP"),
+    # an unknown scheme; both of the reference's are offered
+    (("--scheme", "bls-bn255"), {}, "pick from ['bls-bn254', 'ed25519']"),
     (("--user-transport", "sctp"), {}, "unknown transport"),
     (("--device-plane", "--mesh-shards", "2", "--device", "cpu"), {},
      "mutually exclusive"),
@@ -176,10 +179,29 @@ def test_broker_binary_refuses_what_it_cannot_serve(tmp_path, args, env,
     assert "broker serving" not in out
 
 
-def test_redis_discovery_is_refused():
-    p = spawn_binary("marshal", "--discovery-endpoint", "redis://127.0.0.1:1")
-    out, _ = p.communicate(timeout=60)
-    assert p.returncode not in (0, None) and "ROADMAP" in out, out[-2000:]
+def _have_redis_package() -> bool:
+    try:
+        import redis.asyncio  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def test_redis_discovery_is_refused(tmp_path):
+    """A ``redis://`` endpoint selects Redis discovery on the marshal and
+    the broker; where the ``redis`` package is absent each exits non-zero
+    with the JAX package's message (and where it is present, nothing
+    answers on port 1), never with a "not ported" one."""
+    pub, priv = _free_ports(2)
+    for args in (("marshal", "--discovery-endpoint", "redis://127.0.0.1:1"),
+                 ("broker", *_broker_args("redis://127.0.0.1:1", pub, priv))):
+        p = spawn_binary(*args)
+        out, _ = p.communicate(timeout=60)
+        assert p.returncode not in (0, None), out[-2000:]
+        assert "not ported" not in out and "ROADMAP" not in out, out[-2000:]
+        if not _have_redis_package():
+            assert "the 'redis' package is not available" in out, \
+                out[-2000:]
 
 
 def test_spawned_binaries_are_the_ports():
@@ -713,6 +735,77 @@ async def test_binaries_serve_a_client_over(tmp_path, transport):
                for n, p in procs.items()}
         assert rcs == {"broker": 0, "marshal": 0}, \
             {n: logs[n].read_text()[-2000:] for n in procs}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+async def test_binaries_serve_bls_clients_through_a_dense_plane(tmp_path):
+    """The production run definition's shape as processes: a marshal and a
+    broker with ``--scheme bls-bn254``, users on TCP+TLS, the broker link
+    on TCP and a dense plane (on the CPU here). Two BLS clients get a
+    direct and a broadcast back; the marshal's ``/metrics`` counts its BLS
+    verifications and line-table misses; both exit 0 on SIGTERM."""
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import BlsBn254Scheme
+    from pushcdn_tpu_torch.proto.transport import TcpTls
+
+    db = str(tmp_path / "cdn.sqlite")
+    pub, priv, marshal, metrics = _free_ports(4)
+    logs = {n: tmp_path / f"{n}.log" for n in ("broker", "marshal")}
+    scheme = ("--scheme", "bls-bn254")
+    procs = {
+        "broker": spawn_binary(
+            "broker", *_broker_args(
+                db, pub, priv, "--user-transport", "tcp+tls",
+                "--broker-transport", "tcp", "--device-plane", "--device",
+                "cpu", "--device-ring-slots", "64", *scheme),
+            log_path=logs["broker"]),
+        "marshal": spawn_binary(
+            "marshal", "--discovery-endpoint", db,
+            "--bind-endpoint", f"127.0.0.1:{marshal}",
+            "--metrics-bind-endpoint", f"127.0.0.1:{metrics}",
+            "--user-transport", "tcp+tls", *scheme,
+            log_path=logs["marshal"]),
+    }
+    try:
+        clients = [Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}",
+            keypair=BlsBn254Scheme.generate_keypair(seed=9800 + i),
+            protocol=TcpTls, scheme=BlsBn254Scheme, subscribed_topics={3}))
+            for i in range(2)]
+        async with asyncio.timeout(60):
+            await asyncio.gather(*(c.ensure_initialized() for c in clients))
+            await clients[0].send_direct_message(clients[1].public_key,
+                                                 b"to you")
+            await clients[1].send_broadcast_message([3], b"all")
+            got = [[], []]
+            while len(got[0]) < 1 or len(got[1]) < 2:
+                for i, c in enumerate(clients):
+                    if len(got[i]) < 2 - (i == 0):
+                        got[i] += await asyncio.wait_for(
+                            c.receive_messages(), 10)
+        assert [sorted(bytes(m.message) for m in g) for g in got] \
+            == [[b"all"], [b"all", b"to you"]]
+        text = await _scrape(metrics)
+        series = {line.split()[0]: float(line.split()[-1])
+                  for line in text.splitlines()
+                  if line.startswith(("cdn_native_seconds{",
+                                      "cdn_bls_pk_cache{"))}
+        assert series.get('cdn_native_seconds{kernel="bls_verify"}', 0) > 0
+        assert series.get('cdn_bls_pk_cache{stat="misses"}', 0) >= 2, series
+        for c in clients:
+            c.close()
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        rcs = {n: await asyncio.to_thread(p.wait, 30)
+               for n, p in procs.items()}
+        assert rcs == {"broker": 0, "marshal": 0}, \
+            {n: logs[n].read_text()[-2000:] for n in procs}
+        done = _exit_fields(logs["broker"].read_text(), "device plane exit")
+        assert done is not None and done["delivery_impl"] == "dense"
     finally:
         for p in procs.values():
             if p.poll() is None:

@@ -2,8 +2,8 @@
 brokers and elastic clients in one process over the Memory transport and
 one SQLite discovery file.
 
-Every scenario of ``tests/test_integration.py`` but the BLS one (the
-port has no BLS scheme yet), and the cluster leg of
+Every scenario of ``tests/test_integration.py`` but the BLS one (which
+``tests/test_torch_bls.py`` holds), and the cluster leg of
 ``tests/test_device_plane.py`` that ``tests/test_torch_broker.py`` does
 not already run through its harness (the ragged plane end to end), runs
 on the JAX package's ``Cluster`` and then on the port's

@@ -245,7 +245,10 @@ print(line)
     "pushcdn_tpu_torch.native.syscount",
     "pushcdn_tpu_torch.proto.transport.uring",
     "pushcdn_tpu_torch.proto.transport.pump",
-    "pushcdn_tpu_torch.proto.transport.quic"])
+    "pushcdn_tpu_torch.proto.transport.quic",
+    "pushcdn_tpu_torch.native.bls",
+    "pushcdn_tpu_torch.proto.crypto.batch",
+    "pushcdn_tpu_torch.proto.discovery.redis"])
 def test_host_only_processes_do_not_import_torch(module):
     """A marshal, a client or a broker without a device plane never
     imports torch, as the JAX package's never imports jax; their
@@ -428,6 +431,86 @@ def test_pumped_uring_brokers_do_not_import_torch(tmp_path):
     assert log.read_text() == "", log.read_text()[-3000:]
     armed = set((tmp_path / "imports.log.armed").read_text().split())
     assert len(armed) >= 5, armed
+
+
+def test_bls_marshal_does_not_import_torch(tmp_path):
+    """``marshal --scheme bls-bn254`` with the import trap armed: it builds
+    or loads the port's BLS library, verifies two BLS clients through its
+    batching verifier and exports the line-table gauges, without
+    importing torch, JAX or the JAX package; its ``cdn_build_info`` reads
+    torch as absent."""
+    import asyncio
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    from pushcdn_tpu_torch.bin.common import spawn_binary
+    from pushcdn_tpu_torch.client import Client, ClientConfig
+    from pushcdn_tpu_torch.proto.crypto.signature import BlsBn254Scheme
+    from pushcdn_tpu_torch.proto.transport import Tcp
+
+    trap_dir = tmp_path / "trap"
+    trap_dir.mkdir()
+    (trap_dir / "sitecustomize.py").write_text(_IMPORT_TRAP)
+    log = tmp_path / "imports.log"
+    log.write_text("")
+    ports = []
+    for _ in range(5):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    pub, priv, marshal, metrics, bmetrics = ports
+    db = str(tmp_path / "d.sqlite")
+    env = {"PYTHONPATH": f"{trap_dir}{os.pathsep}{ROOT}",
+           "PUSHCDN_IMPORT_TRAP_LOG": str(log)}
+    scheme = ("--scheme", "bls-bn254")
+    procs = [spawn_binary(
+        "marshal", "--discovery-endpoint", db,
+        "--bind-endpoint", f"127.0.0.1:{marshal}", "--user-transport", "tcp",
+        "--metrics-bind-endpoint", f"127.0.0.1:{metrics}", *scheme,
+        env_extra=env, log_path=tmp_path / "marshal.log"),
+        spawn_binary(
+        "broker", "--discovery-endpoint", db,
+        "--public-advertise-endpoint", f"127.0.0.1:{pub}",
+        "--public-bind-endpoint", f"127.0.0.1:{pub}",
+        "--private-advertise-endpoint", f"127.0.0.1:{priv}",
+        "--private-bind-endpoint", f"127.0.0.1:{priv}",
+        "--metrics-bind-endpoint", f"127.0.0.1:{bmetrics}",
+        "--user-transport", "tcp", *scheme,
+        env_extra=env, log_path=tmp_path / "broker.log")]
+
+    async def connect():
+        clients = [Client(ClientConfig(
+            marshal_endpoint=f"127.0.0.1:{marshal}",
+            keypair=BlsBn254Scheme.generate_keypair(seed=77 + i),
+            protocol=Tcp, scheme=BlsBn254Scheme, subscribed_topics={0}))
+            for i in range(2)]
+        async with asyncio.timeout(60):
+            await asyncio.gather(*(c.ensure_initialized() for c in clients))
+        for c in clients:
+            c.close()
+
+    try:
+        asyncio.run(connect())
+        text = urllib.request.urlopen(f"http://127.0.0.1:{metrics}/metrics",
+                                      timeout=5).read().decode()
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        assert [p.wait(30) for p in procs] == [0, 0], \
+            (tmp_path / "marshal.log").read_text()[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    info = [line for line in text.splitlines()
+            if line.startswith("cdn_build_info{")]
+    assert info and 'torch="absent"' in info[0], info
+    assert 'cdn_bls_pk_cache{stat="misses"} 2' in text, text[-2000:]
+    assert log.read_text() == "", log.read_text()[-3000:]
+    armed = set((tmp_path / "imports.log.armed").read_text().split())
+    assert len(armed) >= 2, armed
 
 
 _HOST_BROKER = r"""

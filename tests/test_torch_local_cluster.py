@@ -241,3 +241,77 @@ def test_local_cluster_device_plane_needs_a_card_unless_told(tmp_path):
     (logdir,) = glob.glob(str(tmp_path / "pushcdn-cluster-*"))
     text = open(os.path.join(logdir, "broker0.log")).read()
     assert "--device-plane" in text and "CUDA" in text, text[-2000:]
+
+
+def _late_readyz_server(port: int, delay_s: float):
+    """A stand-in broker0: its metrics endpoint starts answering
+    ``delay_s`` after the call, and then answers ``/readyz`` as a broker
+    before its listeners bind does (503, the listeners check failing)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps({"ready": False, "checks": {"listeners": {
+                "ok": False, "detail": "not bound yet"}}}).encode()
+            self.send_response(503)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    stop = threading.Event()
+    box = {}
+
+    def serve():
+        if stop.wait(delay_s):
+            return
+        box["server"] = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        box["server"].serve_forever(poll_interval=0.05)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+
+    def close():
+        stop.set()
+        while thread.is_alive() and "server" not in box:
+            thread.join(0.05)
+        if "server" in box:
+            box["server"].shutdown()
+            box["server"].server_close()
+        thread.join()
+    return close
+
+
+def test_plane_broker_startup_window_outlasts_a_slow_first_answer():
+    """A ``--device-plane`` broker imports torch and brings CUDA up before
+    its metrics endpoint answers, so the runner waits up to 45 s for
+    broker0's first ``/readyz`` answer when it starts plane brokers, and
+    the JAX runner's 8 s otherwise: a stand-in whose first answer comes
+    after 10 s passes the pre-bind check under ``--device-plane`` and
+    fails it without. The check itself stands: that answer is a 503 with
+    the listeners check failing."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pushcdn_tpu_torch.scripts import local_cluster as runner
+
+    assert runner.startup_window_s(False) == 8.0
+    assert runner.startup_window_s(True) >= 40.0
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    stand_ins = [_late_readyz_server(p, 10.0) for p in ports]
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            plane, plain = pool.map(
+                lambda a: runner.check_readiness_before_bind(*a),
+                [(ports[0], True), (ports[1], False)])
+    finally:
+        for close in stand_ins:
+            close()
+    assert plane is True
+    assert plain is False

@@ -5,7 +5,8 @@
 (``testing.accel_probe``) is the CUDA twin of JAX's: it reports the card
 unreachable on a host without one, memoises the answer, kills the whole
 process group of a probe that outlives its timeout, and has no CPU
-fallback: ``require_accelerator`` raises instead."""
+fallback: ``require_accelerator`` raises instead. ``scripts.smoke_ab``
+runs ``chip_smoke.py`` from several trees in turn and times each run."""
 
 import os
 import subprocess
@@ -152,3 +153,45 @@ def test_no_cpu_fallback_in_the_port():
     assert not hasattr(accel_probe, "force_cpu_if_unreachable")
     src = open(accel_probe.__file__).read()
     assert "jax_platforms" not in src and 'device="cpu"' not in src
+
+
+_FAKE_SMOKE = """
+import json, sys, time
+time.sleep({sleep})
+print(json.dumps({{"phase": "phase_seconds", "1": {sleep}}}))
+if {rc}:
+    print("chip_smoke: FAILED: a check", file=sys.stderr)
+    sys.exit({rc})
+print(json.dumps({{"ok": True}}))
+"""
+
+
+def test_smoke_ab_runs_each_tree_in_turn_and_times_it(tmp_path):
+    trees = {}
+    for name, sleep, rc in (("parent", 0.3, 0), ("change", 0.0, 1)):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "chip_smoke.py").write_text(_FAKE_SMOKE.format(sleep=sleep,
+                                                            rc=rc))
+        trees[name] = d
+    out = tmp_path / "ab"
+    r = subprocess.run(
+        [sys.executable, "-m", "pushcdn_tpu_torch.scripts.smoke_ab",
+         f"parent={trees['parent']}", f"change={trees['change']}",
+         "--out", str(out)], cwd=ROOT, capture_output=True, text=True,
+        timeout=60)
+    assert r.returncode == 0, r.stderr[-2000:]
+    import json
+    rows = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith('{"run"')]
+    assert [(x["run"], x["tree"], x["rc"]) for x in rows] == \
+        [(0, "parent", 0), (1, "change", 1)]
+    assert rows[0]["command_s"] >= 0.3
+    assert '{"ok": true}' in r.stdout and "FAILED: a check" in r.stdout
+    assert sorted(p.name for p in out.iterdir()) == [
+        "0-parent.err", "0-parent.out", "1-change.err", "1-change.out"]
+    bad = subprocess.run(
+        [sys.executable, "-m", "pushcdn_tpu_torch.scripts.smoke_ab",
+         f"x={tmp_path}"], cwd=ROOT, capture_output=True, text=True,
+        timeout=60)
+    assert bad.returncode != 0 and "dir holding chip_smoke.py" in bad.stderr
