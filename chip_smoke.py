@@ -829,7 +829,9 @@ def run_slice(impl: str, popularity: str, device, seed: int,
         check(got.shape == want.shape and (got == want).all(),
               f"{impl}/{popularity} tick {tick}: {len(got)} pairs, "
               f"oracle {len(want)}")
-        rows.append((stage_s, *plane.recent_steps[-1][:3], len(got)))
+        s = plane.recent_steps[-1]
+        rows.append((stage_s, s.snapshot_s, s.device_s, s.pairs_s,
+                     len(got)))
     return rows, plane
 
 
@@ -1517,9 +1519,10 @@ def plane_stats(plane) -> dict:
     pair extraction on a ragged one, egress), in ms."""
     if plane is None:
         return {}
-    r = np.asarray(plane.recent_steps, np.float64).reshape(-1, 6)
-    med = (lambda col: float(np.median(r[:, col]) * 1e3)) if len(r) \
-        else (lambda col: None)
+    steps = plane.recent_steps
+    med = (lambda part: float(np.median(
+        [getattr(s, part + "_s") for s in steps]) * 1e3)) if steps \
+        else (lambda part: None)
     third = ("encode_ms_median" if plane.delivery_impl == "dense"
              else "pair_extract_ms_median")
     return dict(
@@ -1528,9 +1531,11 @@ def plane_stats(plane) -> dict:
         ragged_fallbacks=plane.ragged_fallbacks,
         busy_steps=plane.busy_steps,
         native_egress_steps=plane.native_egress_steps,
-        frames_per_step_median=float(np.median(r[:, 4])) if len(r) else None,
-        snapshot_ms_median=med(0), device_step_ms_median=med(1),
-        **{third: med(2)}, egress_ms_median=med(3))
+        frames_per_step_median=float(np.median([s.frames for s in steps]))
+        if steps else None,
+        snapshot_ms_median=med("snapshot"),
+        device_step_ms_median=med("device"),
+        **{third: med("pairs")}, egress_ms_median=med("egress"))
 
 
 def phase_broker(device, shape: dict = BROKER):

@@ -227,10 +227,15 @@ def log_plane(what: str, plane) -> None:
                           exchange=exchange_transport(mesh),
                           collectives_last_step=group.collectives_last_step)
         if owner.recent_steps:
+            # a plane's steps also wait for the worker thread to start
+            # (handoff) and for the loop to resume after it (resume)
+            parts = ("snapshot", "device", "pairs", "egress")
+            if group is None:
+                parts += ("handoff", "resume")
             fields["step_ms_median"] = {
                 part: statistics.median(getattr(s, part + "_s")
                                         for s in owner.recent_steps) * 1e3
-                for part in ("snapshot", "device", "pairs", "egress")}
+                for part in parts}
     logger.info("%s %s", what, json.dumps(fields))
 
 

@@ -272,11 +272,14 @@ class Broker:
         metrics_mod.register_debug_route("/debug/ledger",
                                          ledger_mod.ledger_route)
         metrics_mod.register_debug_route("/drain", self._drain_route)
+        metrics_mod.register_debug_route("/debug/plane_steps",
+                                         self._plane_steps_route)
 
     def unregister_observability(self) -> None:
         for name in ("listeners", "discovery", "mesh", "admission",
                      "conservation"):
             health_mod.unregister(name)
+        metrics_mod.unregister_debug_route("/debug/plane_steps")
         metrics_mod.unregister_debug_route("/debug/topology")
         metrics_mod.unregister_debug_route("/debug/ledger")
         metrics_mod.unregister_debug_route("/drain")
@@ -360,6 +363,19 @@ class Broker:
 
     def _topology_route(self, params: dict) -> dict:
         return self.topology_snapshot()
+
+    def _plane_steps_route(self, params: dict):
+        """``GET /debug/plane_steps[?limit=N]``: the single-shard plane's
+        newest step records (``DevicePlane.steps_json``; default 256); 404
+        on a broker without one."""
+        plane = self.device_plane
+        if plane is None or not hasattr(plane, "steps_json"):
+            return 404, "text/plain", "no single-shard device plane\n"
+        try:
+            limit = int(params.get("limit", "256"))
+        except ValueError:
+            return 400, "text/plain", "limit must be an integer\n"
+        return plane.steps_json(limit)
 
     def topology_snapshot(self, max_users: int = 256) -> dict:
         """The live mesh as one JSON-able dict (``GET /debug/topology``):

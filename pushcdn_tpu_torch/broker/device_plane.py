@@ -59,6 +59,16 @@ On the CPU a plane whose native library did not build egresses its
 dense steps through the Python walk too, as the JAX package's does. On
 the card it does not: a warm-up without the library raises out of
 :meth:`start`, and a dense step never takes the Python walk.
+
+Measurement: each step leaves a :class:`StepRecord` in ``recent_steps``,
+the boundaries of the pump's phases (``metrics.PUMP_PHASES``) stamped on
+CLOCK_MONOTONIC with the step's offset to the wall clock, so a profiler's
+device intervals map onto the phases; ``GET /debug/plane_steps`` serves
+them. The pump adds each iteration's phases to
+``cdn_plane_pump_seconds{phase}``, those up to the snapshot as soon as
+it is taken (a ``/metrics`` render adds the open idle phase so far);
+staging counts its answers in
+``cdn_plane_stage_frames{result}``.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ import numpy as np
 import torch
 
 from pushcdn_tpu_torch._device import DeviceLike, resolve_device
+from pushcdn_tpu_torch.broker import metrics as plane_metrics
 from pushcdn_tpu_torch.broker.pump_common import (
     CoalesceGate,
     EncodedEgress,
@@ -107,14 +118,18 @@ from pushcdn_tpu_torch.parallel.router import (
     routing_step_lanes_single,
     routing_step_ragged_single,
 )
+from pushcdn_tpu_torch.proto import metrics as metrics_mod
+from pushcdn_tpu_torch.proto import trace as trace_mod
 from pushcdn_tpu_torch.proto.error import Error
 from pushcdn_tpu_torch.proto.limiter import Bytes
 from pushcdn_tpu_torch.proto.message import (
     KIND_BROADCAST,
     KIND_DIRECT,
+    TRACE_FLAG,
     Broadcast,
     Direct,
     deserialize,
+    unpack_trace,
 )
 
 if TYPE_CHECKING:
@@ -123,7 +138,10 @@ if TYPE_CHECKING:
 logger = logging.getLogger("pushcdn.broker.device")
 
 __all__ = ["DevicePlane", "DevicePlaneConfig", "LaneDeliveries",
-           "StageResult", "StepTiming"]
+           "StageResult", "StepRecord", "StepTiming"]
+
+PUMP_PHASES = plane_metrics.PUMP_PHASES
+_PHASE = {name: i for i, name in enumerate(PUMP_PHASES)}
 
 
 @dataclass
@@ -197,6 +215,59 @@ class StepTiming(NamedTuple):
                         # returns, or the frames the pump queued to users
 
 
+class StepRecord(NamedTuple):
+    """One step on CLOCK_MONOTONIC (``time.monotonic_ns``): phase ``i`` of
+    :data:`PUMP_PHASES` runs from ``stamps[i]`` to ``stamps[i + 1]``, and
+    the phases tile the pump's wall time, each iteration starting where
+    the last one's egress ended. The socket-free :meth:`DevicePlane.step`
+    has no pump, so its idle, wake, coalesce and egress read 0.
+    ``wall_minus_mono_ns`` is ``time.time_ns() - time.monotonic_ns()``
+    read back to back at the step's end: a wall-clock stamp (a profiler
+    trace's) less it lies on the stamps' clock."""
+
+    step: int                # the plane's step count after this step
+    stamps: tuple            # len(PUMP_PHASES) + 1 boundaries, in ns
+    frames: int              # frames the step routed
+    deliveries: int          # what messages_routed adds: the pairs step()
+                             # returns, or the frames the pump queued
+    wall_minus_mono_ns: int
+
+    def phase_s(self, phase: str) -> float:
+        i = _PHASE[phase]
+        return (self.stamps[i + 1] - self.stamps[i]) / 1e9
+
+    # the parts StepTiming names, and the worker thread's two waits
+    snapshot_s = property(lambda self: self.phase_s("snapshot"))
+    device_s = property(lambda self: self.phase_s("device"))
+    pairs_s = property(lambda self: self.phase_s("encode"))
+    egress_s = property(lambda self: self.phase_s("egress"))
+    handoff_s = property(lambda self: self.phase_s("handoff"))
+    resume_s = property(lambda self: self.phase_s("resume"))
+
+    def as_json(self) -> dict:
+        return dict(step=self.step, stamps_ns=list(self.stamps),
+                    frames=self.frames, deliveries=self.deliveries,
+                    wall_minus_mono_ns=self.wall_minus_mono_ns)
+
+
+def _wall_minus_mono_ns() -> int:
+    wall = time.time_ns()
+    return wall - time.monotonic_ns()
+
+
+def _emit_egress_traces(batches, step: int) -> None:
+    """The ``egress`` hop of every traced frame a step routed (its kind
+    byte carries the trace flag), once the pump has queued the step to
+    the writers; ``step=<n>`` names the step's record."""
+    for b in batches:
+        if not b.num_valid:
+            continue
+        rows = np.flatnonzero(b.valid)
+        for i in rows[b.bytes_[rows, 0] & TRACE_FLAG != 0]:
+            trace, _ = unpack_trace(b.bytes_[i], 1)
+            trace_mod.emit("egress", trace, f"device step={step}")
+
+
 class _Snapshot(NamedTuple):
     batches: list
     owned: np.ndarray
@@ -204,6 +275,7 @@ class _Snapshot(NamedTuple):
     state_rev: int
     walks: Optional[list]
     quarantined: List[int]
+    staged_ns: Optional[int]   # when the rings stopped being empty
 
 
 class DevicePlane:
@@ -212,6 +284,8 @@ class DevicePlane:
 
     # single-shard plane: inter-broker fan-out stays on the host links
     covers_brokers = False
+    # the pump emits a staged traced frame's egress hop at its step
+    traces_egress = True
 
     def __init__(self, config: Optional[DevicePlaneConfig] = None,
                  device: DeviceLike = None,
@@ -253,9 +327,16 @@ class DevicePlane:
         # whose every lane went out through native.egress_encode
         self.busy_steps = 0
         self.native_egress_steps = 0
-        # the recent steps (StepTiming), newest last
+        # the recent steps (StepRecord), newest last
         self.recent_steps: collections.deque = collections.deque(
             maxlen=4096)
+        # when the rings last stopped being empty (monotonic ns); the
+        # snapshot that empties them takes it
+        self._staged_ns: Optional[int] = None
+        # the pump awaits its kick, and the idle time up to this stamp is
+        # in cdn_plane_pump_seconds already (credit_idle)
+        self._pump_waiting = False
+        self._idle_credited_ns = 0
         self.disabled = False
         # the heartbeat's fail-open check reads this off any plane; a
         # single-shard plane never needs host links for overflow
@@ -374,7 +455,11 @@ class DevicePlane:
         configured space, no topics, another kind, or the idle bypass);
         FULL ⇒ backpressure, retry."""
         results = [StageResult.INELIGIBLE] * len(items)
-        if self.disabled or self._idle_bypass(len(items)):
+        if self.disabled:
+            plane_metrics.PLANE_INELIGIBLE.inc(len(items))
+            return results
+        if self._idle_bypass(len(items)):
+            plane_metrics.PLANE_BYPASS.inc(len(items))
             return results
         groups: dict[int, list] = {}   # lane -> [(idx, frame, kind, mask, dest)]
         free = [r.free_slots for r in self.rings]
@@ -406,16 +491,24 @@ class DevicePlane:
                     placed = True
                     break
             results[idx] = StageResult.STAGED if placed else StageResult.FULL
-        staged_any = False
+        staged = 0
         for li, group in groups.items():
             n = self.rings[li].push_batch(
                 [g[1] for g in group], [g[2] for g in group],
                 [g[3] for g in group], [g[4] for g in group])
-            staged_any = staged_any or n > 0
+            staged += n
             for idx, *_ in group[n:]:
                 results[idx] = StageResult.FULL
-        if staged_any:
+        full = results.count(StageResult.FULL)
+        if staged:
+            plane_metrics.PLANE_STAGED.inc(staged)
+            if self._staged_ns is None:
+                self._staged_ns = time.monotonic_ns()
             self._kick.set()
+        if full:
+            plane_metrics.PLANE_FULL.inc(full)
+        if len(items) > staged + full:
+            plane_metrics.PLANE_INELIGIBLE.inc(len(items) - staged - full)
         return results
 
     def covered_broker_idents(self) -> set:
@@ -466,9 +559,10 @@ class DevicePlane:
         walks = self._pack_walks(batches) \
             if self.delivery_impl == "ragged" else None
         quarantined, self._quarantine = self._quarantine, []
+        staged_ns, self._staged_ns = self._staged_ns, None
         return _Snapshot(batches, self._owned[:u_eff].copy(),
                          self._masks[:u_eff].copy(), self._state_rev, walks,
-                         quarantined)
+                         quarantined, staged_ns)
 
     def _free_quarantined(self, snap: _Snapshot) -> None:
         for slot in snap.quarantined:  # the step is over: safe to recycle
@@ -479,21 +573,23 @@ class DevicePlane:
         the dense or the ragged device step, and return the delivery
         pairs of every lane that delivered something. Raises if the step
         fails."""
-        t0 = time.perf_counter()
+        t0 = time.monotonic_ns()
         snap = self._snapshot()
         if snap is None:
             return []
-        t1 = time.perf_counter()
+        t1 = time.monotonic_ns()
         try:
-            out, pairs_s = self._run_step(snap.batches, snap.owned,
-                                          snap.masks, snap.state_rev,
-                                          snap.walks)
+            out, worker = self._run_step(snap.batches, snap.owned,
+                                         snap.masks, snap.state_rev,
+                                         snap.walks)
         finally:
             self._free_quarantined(snap)
+        t2 = time.monotonic_ns()
         pairs = sum(len(j.users) for j in out)
-        self.recent_steps.append(StepTiming(
-            t1 - t0, time.perf_counter() - t1 - pairs_s, pairs_s, 0.0,
-            sum(b.num_valid for b in snap.batches), pairs))
+        self.recent_steps.append(StepRecord(
+            self.steps, (t0, t0, t0, t0, t1, *worker, t2, t2),
+            sum(b.num_valid for b in snap.batches), pairs,
+            _wall_minus_mono_ns()))
         self.messages_routed += pairs
         return out
 
@@ -505,6 +601,7 @@ class DevicePlane:
         card a warm-up that fails raises here."""
         await asyncio.to_thread(self._warmup)
         self._task = asyncio.create_task(self._pump(), name="device-pump")
+        metrics_mod.PRE_RENDER_HOOKS.append(self.credit_idle)
 
     def _warmup(self) -> None:
         """Run the two shapes the pump uses once: all lanes at full size
@@ -533,6 +630,8 @@ class DevicePlane:
             self.steps = steps  # warmup doesn't count
 
     async def stop(self) -> None:
+        if self.credit_idle in metrics_mod.PRE_RENDER_HOOKS:
+            metrics_mod.PRE_RENDER_HOOKS.remove(self.credit_idle)
         if self._task is not None:
             self._task.cancel()
             try:
@@ -546,8 +645,16 @@ class DevicePlane:
         c = self.config
         loop = asyncio.get_running_loop()
         gate = CoalesceGate(c.batch_window_s, c.coalesce_min_frames)
+        seconds = plane_metrics.PLANE_PUMP_PHASE_SECONDS
+        t_begin = time.monotonic_ns()   # the previous egress's end
+        self._idle_credited_ns = t_begin
         while True:
-            await self._kick.wait()
+            self._pump_waiting = True
+            try:
+                await self._kick.wait()
+            finally:
+                self._pump_waiting = False
+            t_woke = time.monotonic_ns()
             self._kick.clear()
             await asyncio.sleep(0)  # let same-tick stagers land
             staged = sum(r.slots - r.free_slots for r in self.rings)
@@ -556,33 +663,49 @@ class DevicePlane:
                 # steady trickle: coalesce one window; bursts after idle
                 # and saturated pipelines step now
                 await asyncio.sleep(wait)
-            t0 = time.perf_counter()
+            t_coalesced = time.monotonic_ns()
             snap = self._snapshot()
             if snap is None:
-                continue
-            t1 = time.perf_counter()
+                continue   # a spurious kick: its wait counts as idle
+            t_snapped = time.monotonic_ns()
+            # the first frame's staging, inside [t_begin, t_woke]: 0 idle
+            # when frames were staged before the iteration began
+            t_staged = t_woke if snap.staged_ns is None \
+                else min(max(snap.staged_ns, t_begin), t_woke)
+            # the phases up to the snapshot count now, so an idle of any
+            # length lands before the step and not in a later scrape
+            head = (t_begin, t_staged, t_woke, t_coalesced, t_snapped)
+            spans = [(b - a) / 1e9 for a, b in zip(head, head[1:])]
+            spans[0] = max(t_staged - self._idle_credited_ns, 0) / 1e9
+            metrics_mod.inc_each(seconds, spans)
             try:
                 self._step_inflight = True
                 try:
-                    jobs, pairs_s = await asyncio.to_thread(
+                    jobs, worker = await asyncio.to_thread(
                         self._run_step, snap.batches, snap.owned,
                         snap.masks, snap.state_rev, snap.walks,
                         encode=True)
                 finally:
                     self._step_inflight = False
-                t2 = time.perf_counter()
+                t_resumed = time.monotonic_ns()
                 gate.stepped(loop.time())
                 delivered = sum(egress_job(self.broker, self.slots, j)
                                 for j in jobs)
-                t3 = time.perf_counter()
                 self.messages_routed += delivered
                 if jobs:
                     self.busy_steps += 1
                     if all(isinstance(j, EncodedEgress) for j in jobs):
                         self.native_egress_steps += 1
-                self.recent_steps.append(StepTiming(
-                    t1 - t0, t2 - t1 - pairs_s, pairs_s, t3 - t2,
-                    sum(b.num_valid for b in snap.batches), delivered))
+                _emit_egress_traces(snap.batches, self.steps)
+                t_end = time.monotonic_ns()
+                tail = (t_snapped, *worker, t_resumed, t_end)
+                self.recent_steps.append(StepRecord(
+                    self.steps, head + tail[1:],
+                    sum(b.num_valid for b in snap.batches), delivered,
+                    _wall_minus_mono_ns()))
+                metrics_mod.inc_each(seconds[len(spans):], [
+                    (b - a) / 1e9 for a, b in zip(tail, tail[1:])])
+                t_begin = self._idle_credited_ns = t_end
             except asyncio.CancelledError:
                 raise
             except Exception:
@@ -601,6 +724,27 @@ class DevicePlane:
                 raise   # on the card: the broker goes down with it
             finally:
                 self._free_quarantined(snap)
+
+    def credit_idle(self) -> None:
+        """Add the pump's open idle phase, up to now, to
+        ``cdn_plane_pump_seconds{phase="idle"}`` while the pump awaits its
+        kick with nothing staged (a pre-render hook of ``/metrics``), so
+        a scrape during a long idle reads it; the snapshot that ends the
+        idle adds the rest."""
+        if self._pump_waiting and self._staged_ns is None:
+            now = time.monotonic_ns()
+            plane_metrics.PLANE_PUMP_PHASE_SECONDS[0].inc(
+                (now - self._idle_credited_ns) / 1e9)
+            self._idle_credited_ns = now
+
+    def steps_json(self, limit: Optional[int] = None) -> dict:
+        """The newest ``limit`` step records (all the ring holds when
+        None), oldest first, for ``GET /debug/plane_steps``."""
+        steps = list(self.recent_steps)
+        if limit is not None:
+            steps = steps[-limit:] if limit > 0 else []
+        return dict(clock="CLOCK_MONOTONIC", phases=list(PUMP_PHASES),
+                    steps=[r.as_json() for r in steps])
 
     async def _host_fallback(self, lane_batches) -> None:
         """Deliver batches the device failed to route, via the host path.
@@ -637,13 +781,16 @@ class DevicePlane:
         """The device step against the snapshotted mirrors (under the
         pump, in a worker thread). Idle lanes reuse cached device-side
         empty batches; zero-width byte stubs stand in for the frame bytes
-        (``gather_bytes=False``). Returns the lanes' deliveries and the
-        seconds spent extracting pairs. ``warmup`` routes every lane
-        whatever its traffic (idle ragged lanes too) and delivers
-        nothing. With ``encode`` (the pump) a dense lane's matrix is
-        encoded into wire streams (an :class:`EncodedEgress`, its seconds
-        counted as the pairs'); without the library that is the lane's
-        pairs on the CPU and an error on the card."""
+        (``gather_bytes=False``). Every lane's launch and readback come
+        first, then every lane's pairs or encode. Returns the lanes'
+        deliveries and three ``time.monotonic_ns`` stamps: the step's
+        start, its last readback and its end (the ``device`` and
+        ``encode`` phases). ``warmup`` routes every lane whatever its
+        traffic (idle ragged lanes too) and delivers nothing. With
+        ``encode`` (the pump) a dense lane's matrix is encoded into wire
+        streams (an :class:`EncodedEgress`); without the library that is
+        the lane's pairs on the CPU and an error on the card."""
+        t_start = time.monotonic_ns()
         up = self._upload
 
         def build_state():
@@ -676,8 +823,9 @@ class DevicePlane:
 
         busy = [bool(b.valid.any()) for b in lane_batches]
         jobs: list = []
-        pairs_s = 0.0
         self.steps += 1
+        # the lanes that can deliver, each with its host readback
+        read: list = []
 
         if walks is not None:
             for li, (b, walk) in enumerate(zip(lane_batches, walks)):
@@ -686,21 +834,7 @@ class DevicePlane:
                 res = routing_step_ragged_single(
                     state, to_dev(li, b, busy[li]), up(walk.pages),
                     up(walk.walk_page), up(walk.walk_frame))
-                out_user = res.out_user.cpu().numpy()
-                if warmup:
-                    continue
-                t = time.perf_counter()
-                if self.config.ragged_relaxed_order:
-                    users, frames = ragged_pairs_grouped(
-                        out_user, walk, num_users=self.config.num_user_slots)
-                else:
-                    users, frames = ragged_pairs(
-                        out_user, walk.walk_frame,
-                        num_users=self.config.num_user_slots)
-                pairs_s += time.perf_counter() - t
-                if len(users):
-                    jobs.append(LaneDeliveries(li, users, frames, b.length,
-                                               b.bytes_))
+                read.append((li, b, walk, res.out_user.cpu().numpy()))
             if not warmup:
                 self.ragged_steps += 1
         else:
@@ -711,22 +845,30 @@ class DevicePlane:
             for li, lane in enumerate(result.lanes):
                 if not busy[li] and not warmup:
                     continue  # an idle lane can't deliver: skip its copy
-                deliver = lane.deliver.cpu().numpy()
-                if warmup:
-                    continue
-                b = lane_batches[li]
-                t = time.perf_counter()
-                streams = None
-                if encode and deliver.any():
-                    streams = encode_egress(deliver, b.length, [b.bytes_],
+                read.append((li, lane_batches[li], None,
+                             lane.deliver.cpu().numpy()))
+        t_read = time.monotonic_ns()
+        if warmup:
+            return jobs, (t_start, t_read, time.monotonic_ns())
+
+        for li, b, walk, out in read:
+            if walk is not None:
+                if self.config.ragged_relaxed_order:
+                    users, frames = ragged_pairs_grouped(
+                        out, walk, num_users=self.config.num_user_slots)
+                else:
+                    users, frames = ragged_pairs(
+                        out, walk.walk_frame,
+                        num_users=self.config.num_user_slots)
+            else:
+                if encode and out.any():
+                    streams = encode_egress(out, b.length, [b.bytes_],
                                             strict=not self.fails_open)
-                if streams is not None:
-                    pairs_s += time.perf_counter() - t
-                    jobs.append(EncodedEgress(0, streams))
-                    continue
-                users, frames = np.nonzero(deliver)
-                pairs_s += time.perf_counter() - t
-                if len(users):
-                    jobs.append(LaneDeliveries(li, users, frames, b.length,
-                                               b.bytes_))
-        return jobs, pairs_s
+                    if streams is not None:
+                        jobs.append(EncodedEgress(0, streams))
+                        continue
+                users, frames = np.nonzero(out)
+            if len(users):
+                jobs.append(LaneDeliveries(li, users, frames, b.length,
+                                           b.bytes_))
+        return jobs, (t_start, t_read, time.monotonic_ns())

@@ -1,6 +1,7 @@
-"""Broker gauges (parity cdn-broker/src/metrics.rs:13-21)."""
+"""Broker gauges (parity cdn-broker/src/metrics.rs:13-21) and the device
+plane's own counters."""
 
-from pushcdn_tpu_torch.proto.metrics import Gauge
+from pushcdn_tpu_torch.proto.metrics import Counter, Gauge
 
 NUM_USERS_CONNECTED = Gauge("cdn_num_users_connected",
                             "Users currently connected to this broker")
@@ -15,3 +16,29 @@ DEVICE_STEPS = Gauge("cdn_device_steps",
 DEVICE_MESSAGES_ROUTED = Gauge(
     "cdn_device_messages_routed",
     "Messages delivered via the device plane's egress")
+
+# The single-shard plane's pump, cut into phases that tile its wall time
+# (broker/device_plane.py): one add per phase per pump iteration, and a
+# render adds the open idle phase so far (DevicePlane.credit_idle).
+PUMP_PHASES = ("idle", "wake", "coalesce", "snapshot", "handoff", "device",
+               "encode", "resume", "egress")
+PLANE_PUMP_SECONDS = Counter(
+    "cdn_plane_pump_seconds",
+    "Cumulative seconds of the device plane's pump by phase (idle, wake, "
+    "coalesce, snapshot, handoff, device, encode, resume, egress); the "
+    "phases tile the pump's wall time",
+    labels=("phase",))
+PLANE_PUMP_PHASE_SECONDS = tuple(PLANE_PUMP_SECONDS.labels(phase=p)
+                                 for p in PUMP_PHASES)
+# The plane's staging decisions, once per outcome per staging call:
+# bypass is the idle bypass alone, ineligible every other host-path
+# answer, full every attempt refused for want of a slot (retries too)
+PLANE_STAGE_FRAMES = Counter(
+    "cdn_plane_stage_frames",
+    "Frames offered to the device plane's staging, by result "
+    "(staged|bypass|ineligible|full)",
+    labels=("result",))
+PLANE_STAGED = PLANE_STAGE_FRAMES.labels(result="staged")
+PLANE_BYPASS = PLANE_STAGE_FRAMES.labels(result="bypass")
+PLANE_INELIGIBLE = PLANE_STAGE_FRAMES.labels(result="ineligible")
+PLANE_FULL = PLANE_STAGE_FRAMES.labels(result="full")

@@ -282,18 +282,21 @@ class EgressBatch:
                                f"writer-handoff {now - t0:.6f}s")
 
 
-def _emit_staged_trace(message) -> None:
+def _emit_staged_trace(message, device) -> None:
     """Span emission for a traced message the DEVICE plane accepted: the
     frame rides the staging ring and the device egress verbatim (flag +
-    trace block intact — the receiver still emits ``delivery``), so the
-    broker-side hops collapse to the stage handoff: ``plan`` = the stage
-    decision, ``egress`` = handed to the device pump's egress (the pump
-    itself is a batched jitted step with no per-message seam)."""
+    trace block intact — the receiver still emits ``delivery``).
+    ``ingress`` and ``plan`` (the stage decision) fire here. A plane that
+    ``traces_egress`` (the single-shard plane) emits ``egress`` with
+    ``step=<n>`` once its pump has queued the step that routed the frame
+    to the writers; for the mesh groups' members ``egress`` fires here,
+    at the stage handoff."""
     tr = message.trace
     if tr is not None:
         trace_mod.emit("ingress", tr, "device")
         trace_mod.emit("plan", tr, "device-staged")
-        trace_mod.emit("egress", tr, "device-staged")
+        if not getattr(device, "traces_egress", False):
+            trace_mod.emit("egress", tr, "device-staged")
 
 
 def _emit_scalar_trace(message, egress: EgressBatch, before: int) -> None:
@@ -701,7 +704,7 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
                                 device, message, raw)
                         staged = res == StageResult.STAGED
                         if staged:
-                            _emit_staged_trace(message)
+                            _emit_staged_trace(message, device)
                         if isinstance(message, Direct):
                             if not staged:
                                 a0 = egress.appended
@@ -874,7 +877,7 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                             res = await _stage_with_backpressure(
                                 device, message, raw)
                         if res == StageResult.STAGED:
-                            _emit_staged_trace(message)
+                            _emit_staged_trace(message, device)
                             continue
                         a0 = egress.appended
                         if isinstance(message, Direct):

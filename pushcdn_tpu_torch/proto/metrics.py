@@ -119,6 +119,14 @@ class Counter(_LabeledMixin):
         return "\n".join(out) + "\n"
 
 
+def inc_each(counters, amounts) -> None:
+    """Add ``amounts`` to ``counters`` pairwise under one take of the lock:
+    a batch of one caller's counters (a pump iteration's phases)."""
+    with _LOCK:
+        for counter, n in zip(counters, amounts):
+            counter.value += n
+
+
 class Gauge(_LabeledMixin):
     """Settable gauge."""
 
@@ -261,6 +269,15 @@ BYTES_SENT = Counter("cdn_bytes_sent", "Total bytes written to peers",
                      labels=("transport",))
 BYTES_RECV = Counter("cdn_bytes_received", "Total bytes read from peers",
                      labels=("transport",))
+# The synchronous part of a stream write (over TCP+TLS, where asyncio's
+# SSL transport encrypts and hands the bytes to the socket), per
+# transport as BYTES_SENT: the connection hands its child to its stream,
+# which adds one stamp pair per flush; the drain's wait is not counted.
+STREAM_WRITE_SECONDS = Counter(
+    "cdn_stream_write_seconds",
+    "Cumulative seconds inside stream writes before the drain: the copy "
+    "and the transport's write (TLS encryption included)",
+    labels=("transport",))
 LATENCY = Histogram("cdn_message_latency_seconds",
                     "Permit-allocation lifetime: receive -> last fan-out send")
 RUNNING_LATENCY = Gauge("cdn_running_latency_seconds",
@@ -430,8 +447,8 @@ WRITER_QUEUE_DELAY = Histogram(
     "Head-of-line delay per flow class: writer-queue enqueue -> the "
     "writer loop dequeuing the entry (the ROADMAP item-4 scheduling "
     "input; inline fast-path sends never queue and are not observed)",
-    buckets=(1e-6, 1e-5, 1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5,
-             1.0, 5.0),
+    buckets=(1e-6, 1e-5, 1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.2,
+             0.3, 0.5, 0.75, 1.0, 2.0, 5.0),
     labels=("class",))
 WRITER_QUEUE_DELAY_CLS = tuple(WRITER_QUEUE_DELAY.labels(**{"class": c})
                                for c in _CLASS_NAMES)
@@ -1118,7 +1135,7 @@ async def serve_metrics(bind_endpoint: str) -> asyncio.AbstractServer:
     - ``GET /debug/flightrec[?limit=N]`` — live flight-recorder trails,
       capped at N events total (default 10000).
     - ``GET /debug/...`` — component-registered routes (broker:
-      ``/debug/topology``).
+      ``/debug/topology``, ``/debug/plane_steps``).
 
     Non-GET methods get 405, unknown paths 404, a garbled request line
     400. Returns the server; also spawns the supervised background

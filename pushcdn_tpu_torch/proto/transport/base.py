@@ -234,11 +234,17 @@ class RawStream(abc.ABC):
 
 
 class AsyncioStream(RawStream):
-    """RawStream over an asyncio (StreamReader, StreamWriter) pair."""
+    """RawStream over an asyncio (StreamReader, StreamWriter) pair.
+
+    ``write_seconds``, when set (the owning :class:`Connection` hands it
+    its ``cdn_stream_write_seconds`` child), takes the seconds of each
+    flush's synchronous part: the copy and the transport's write, where
+    asyncio's SSL transport encrypts. The drain's wait is not counted."""
 
     def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         self.reader = reader
         self.writer = writer
+        self.write_seconds = None
 
     async def read_exactly(self, n: int) -> bytes:
         return await self.reader.readexactly(n)
@@ -254,14 +260,20 @@ class AsyncioStream(RawStream):
         # asyncio transports keep buffer references instead of copying,
         # and the egress pool recycles the underlying buffer as soon as
         # its lease drops — the transport must own a private copy
+        t0 = time.perf_counter()
         self.writer.write(bytes(data) if isinstance(data, memoryview) else data)
+        if self.write_seconds is not None:
+            self.write_seconds.inc(time.perf_counter() - t0)
         await self.writer.drain()
 
     async def writev(self, bufs) -> None:
         # one gather handoff: writelines joins the run into a single
         # transport write (one kernel handoff instead of one per buffer)
+        t0 = time.perf_counter()
         self.writer.writelines(
             [bytes(b) if isinstance(b, memoryview) else b for b in bufs])
+        if self.write_seconds is not None:
+            self.write_seconds.inc(time.perf_counter() - t0)
         await self.writer.drain()
 
     async def close(self) -> None:
@@ -307,6 +319,9 @@ class Connection:
         transport = label.split(":", 1)[0] or "?"
         self._m_sent = metrics_mod.BYTES_SENT.labels(transport=transport)
         self._m_recv = metrics_mod.BYTES_RECV.labels(transport=transport)
+        if isinstance(stream, AsyncioStream):
+            stream.write_seconds = metrics_mod.STREAM_WRITE_SECONDS.labels(
+                transport=transport)
         # flight recorder: the last ~64 structured events on this
         # connection, dumped to the diagnostics log on abnormal death and
         # readable at /debug/flightrec

@@ -130,6 +130,8 @@ async def test_broker_binary_device_plane_end_to_end(tmp_path):
         assert done["messages_routed"] == routed > 0
         assert done["steps"] > 0 and done["delivery_impl"] == "dense"
         assert not done["disabled"]
+        assert set(done["step_ms_median"]) == {
+            "snapshot", "device", "pairs", "egress", "handoff", "resume"}
         # nothing launches a CUDA kernel on the CPU
         assert done["launches"] == {"delivery_matrix_cuda": 0,
                                     "ragged_delivery_cuda": 0}
