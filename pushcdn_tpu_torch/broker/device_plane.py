@@ -344,6 +344,11 @@ class DevicePlane:
         self._kick = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._step_inflight = False
+        # per sender (a receive loop's ``source``): the widest lane its
+        # frames took since the last snapshot. A step egresses its lanes
+        # one after another, so a sender's later frame must not ride a
+        # narrower lane than an earlier one of the same step
+        self._lane_floor: dict = {}
 
     @property
     def fails_open(self) -> bool:
@@ -430,25 +435,35 @@ class DevicePlane:
                 and not self._step_inflight
                 and all(r.free_slots == r.slots for r in self.rings))
 
-    def try_stage(self, message, raw: Bytes) -> StageResult:
+    def try_stage(self, message, raw: Bytes, source=None) -> StageResult:
         """Stage one decoded message's WIRE FRAME for device routing.
         INELIGIBLE ⇒ host path; FULL ⇒ slot-credit backpressure, the
         caller retries."""
-        return self.stage_frames([frame_item(message, raw)])[0]
+        return self.stage_frames([frame_item(message, raw)], source)[0]
 
-    def stage_batch(self, items) -> List[StageResult]:
+    def stage_batch(self, items, source=None) -> List[StageResult]:
         """Stage a whole receive batch of ``(message, raw)`` pairs in one
         pass; returns a ``StageResult`` per item, aligned with ``items``
-        (FULL items are the leftovers the caller retries singly)."""
-        return self.stage_frames([frame_item(m, r) for m, r in items])
+        (FULL items are the leftovers the caller retries singly, in
+        order)."""
+        return self.stage_frames([frame_item(m, r) for m, r in items],
+                                 source)
 
-    def stage_frames(self, items) -> List[StageResult]:
+    def stage_frames(self, items, source=None) -> List[StageResult]:
         """Stage a batch of ``(kind, payload, target)`` items, where
         ``payload`` is the wire frame and ``target`` the topic list of a
         ``KIND_BROADCAST`` frame or the recipient's public key of a
         ``KIND_DIRECT`` frame. Each eligible frame goes to the smallest
         lane it fits with a free slot; each lane's group is packed with
         one ``FrameRing.push_batch``.
+
+        With a ``source`` (the sender whose receive loop stages: a user's
+        key, a peer broker's identifier) the sender's order holds across
+        the lanes, which a step egresses one after another: a frame takes
+        no lane narrower than the widest its sender's earlier frames took
+        since the last snapshot, and once one of the items is FULL every
+        later item is FULL too, so the caller's in-order retries stage
+        them after it.
 
         INELIGIBLE ⇒ host path (plane disabled, too big, unknown
         recipient, unmirrored users present, a topic outside the
@@ -464,6 +479,8 @@ class DevicePlane:
         groups: dict[int, list] = {}   # lane -> [(idx, frame, kind, mask, dest)]
         free = [r.free_slots for r in self.rings]
         widest = self.rings[-1].frame_bytes
+        floor = 0 if source is None else self._lane_floor.get(source, 0)
+        held = False   # an earlier item of an ordered batch was FULL
         for idx, (kind, payload, target) in enumerate(items):
             frame = bytes(payload)
             if len(frame) > widest:
@@ -483,13 +500,18 @@ class DevicePlane:
             else:
                 continue
             placed = False
-            for li, ring in enumerate(self.rings):
-                if len(frame) <= ring.frame_bytes and free[li] > 0:
-                    free[li] -= 1
-                    groups.setdefault(li, []).append(
-                        (idx, frame, kind, mask, dest))
-                    placed = True
-                    break
+            if not held:
+                for li in range(floor, len(self.rings)):
+                    if len(frame) <= self.rings[li].frame_bytes \
+                            and free[li] > 0:
+                        free[li] -= 1
+                        groups.setdefault(li, []).append(
+                            (idx, frame, kind, mask, dest))
+                        placed = True
+                        if source is not None:
+                            floor = li
+                        break
+            held = source is not None and not placed
             results[idx] = StageResult.STAGED if placed else StageResult.FULL
         staged = 0
         for li, group in groups.items():
@@ -499,6 +521,8 @@ class DevicePlane:
             staged += n
             for idx, *_ in group[n:]:
                 results[idx] = StageResult.FULL
+        if floor:
+            self._lane_floor[source] = floor
         full = results.count(StageResult.FULL)
         if staged:
             plane_metrics.PLANE_STAGED.inc(staged)
@@ -553,6 +577,7 @@ class DevicePlane:
         small = (self.rings[0].slots - self.rings[0].free_slots <= lat
                  and all(r.free_slots == r.slots for r in self.rings[1:]))
         batches = [r.take_batch() for r in self.rings]
+        self._lane_floor.clear()
         if small:
             batches = [slice_batch(batches[0], lat)]
         u_eff = effective_users(self.slots.high_water, c.num_user_slots)

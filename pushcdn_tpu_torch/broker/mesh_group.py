@@ -683,10 +683,12 @@ class MeshShardPlane:
         self.group.update_mask(self.shard, public_key, topics)
 
     # staging -------------------------------------------------------------
-    def try_stage(self, message, raw: Bytes) -> StageResult:
+    def try_stage(self, message, raw: Bytes, source=None) -> StageResult:
         return self.group.try_stage(self.shard, message, raw)
 
-    def stage_batch(self, items) -> List[StageResult]:
+    def stage_batch(self, items, source=None) -> List[StageResult]:
+        # ``source`` (the sender's lane order of the single-shard plane)
+        # is not kept here: the group's lanes still egress in lane order
         return self.group.stage_batch(self.shard, items)
 
     def covered_broker_idents(self) -> set:

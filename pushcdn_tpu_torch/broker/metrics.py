@@ -42,3 +42,25 @@ PLANE_STAGED = PLANE_STAGE_FRAMES.labels(result="staged")
 PLANE_BYPASS = PLANE_STAGE_FRAMES.labels(result="bypass")
 PLANE_INELIGIBLE = PLANE_STAGE_FRAMES.labels(result="ineligible")
 PLANE_FULL = PLANE_STAGE_FRAMES.labels(result="full")
+
+# The broker-to-broker link, on the scalar receive loop and routing path
+# (every broker with a device plane takes it; the cut-through plan's
+# chunks are not counted). One stamp pair per batch of
+# broker_receive_loop, from the batch's arrival to its egress flush:
+# deserialize, hook, route and stage, the wait of a full ring included.
+LINK_RECEIVE_SECONDS = Counter(
+    "cdn_link_receive_seconds",
+    "Cumulative seconds of broker_receive_loop's batches from their "
+    "arrival to their egress flush (deserialize, hook, route, stage)")
+# Direct and Broadcast frames received from peer brokers (dir=in, once
+# per batch) and forwarded to them (dir=out, at the routing decision, as
+# the ledger's per-link table counts them)
+LINK_FRAMES = Counter(
+    "cdn_link_frames",
+    "Direct and Broadcast frames received from (dir=in) and forwarded to "
+    "(dir=out) peer brokers, by kind (direct|broadcast)",
+    labels=("dir", "kind"))
+LINK_IN_DIRECT = LINK_FRAMES.labels(dir="in", kind="direct")
+LINK_IN_BROADCAST = LINK_FRAMES.labels(dir="in", kind="broadcast")
+LINK_OUT_DIRECT = LINK_FRAMES.labels(dir="out", kind="direct")
+LINK_OUT_BROADCAST = LINK_FRAMES.labels(dir="out", kind="broadcast")

@@ -39,6 +39,7 @@ import logging
 import time
 from typing import TYPE_CHECKING, List, Optional, Sequence
 
+from pushcdn_tpu_torch.broker import metrics as broker_metrics
 from pushcdn_tpu_torch.broker.staging import StageResult
 from pushcdn_tpu_torch.proto import flowclass
 from pushcdn_tpu_torch.proto import ledger as ledger_mod
@@ -128,12 +129,14 @@ class EgressBatch:
         self.appended += 1
 
     def to_broker(self, identifier: str, raw: Bytes,
-                  cls: int = flowclass.LIVE) -> None:
+                  cls: int = flowclass.LIVE, direct: bool = False) -> None:
         lst = self.brokers.get(identifier)
         if lst is None:
             lst = self.brokers[identifier] = []
         lst.append(raw.clone())
         self.appended += 1
+        (broker_metrics.LINK_OUT_DIRECT if direct
+         else broker_metrics.LINK_OUT_BROADCAST).inc()
         # per-link conservation table (ISSUE 20): counted at the routing
         # decision, where the per-frame class is exact on both ends
         ledger_mod.note_link_sent(identifier, cls)
@@ -368,7 +371,7 @@ def _route_direct(broker: "Broker", recipient: bytes, raw: Bytes,
                     egress.to_user(recipient, raw)
                 return
             if owner in conns.brokers:
-                egress.to_broker(owner, raw)
+                egress.to_broker(owner, raw, direct=True)
             else:
                 link_shard = conns.remote_broker_shard.get(owner)
                 if link_shard is not None:
@@ -400,7 +403,7 @@ def _route_direct(broker: "Broker", recipient: bytes, raw: Bytes,
     elif not to_user_only:
         # forward one hop to the owning broker; the remote end delivers
         # with to_user_only=True so it can never bounce back
-        egress.to_broker(owner, raw)
+        egress.to_broker(owner, raw, direct=True)
     else:
         # one-hop rule: never re-forward. A forwarded direct that raced
         # the migration eviction (sender's DirectMap replica was behind)
@@ -537,14 +540,16 @@ async def handle_broadcast_message(broker: "Broker", topics: Sequence[int],
     await egress.flush()
 
 
-async def _stage_with_backpressure(device, message, raw: Bytes):
+async def _stage_with_backpressure(device, message, raw: Bytes, source):
     """Stage onto the device plane; FULL results block THIS sender's
     receive loop and retry — the same "block the reader, not the router"
     semantics the byte-pool gives the host path. The wait is unbounded on
     purpose (so is the pool's): if the pump dies it flips ``disabled`` and
-    try_stage starts returning INELIGIBLE, which exits the loop."""
+    try_stage starts returning INELIGIBLE, which exits the loop.
+    ``source`` is the sender, whose order the plane keeps across its
+    lanes."""
     while True:
-        result = device.try_stage(message, raw)
+        result = device.try_stage(message, raw, source=source)
         if result != StageResult.FULL:
             return result
         await asyncio.sleep(0.002)
@@ -696,12 +701,13 @@ async def user_receive_loop(broker: "Broker", public_key: bytes,
                 # messages, then host-route whatever the device didn't take
                 if stage_items:
                     results = device.stage_batch(
-                        [(m, r) for m, r, _ in stage_items])
+                        [(m, r) for m, r, _ in stage_items],
+                        source=public_key)
                     for (message, raw, pruned), res in zip(stage_items,
                                                            results):
                         if res == StageResult.FULL:
                             res = await _stage_with_backpressure(
-                                device, message, raw)
+                                device, message, raw, public_key)
                         staged = res == StageResult.STAGED
                         if staged:
                             _emit_staged_trace(message, device)
@@ -773,6 +779,8 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                                               conn=connection)
                 continue
             raws = await connection.recv_raw_many()
+            t_batch = time.perf_counter()
+            n_direct = n_broadcast = 0
             metrics_mod.ROUTE_SCALAR_FRAMES.inc(len(raws))
             egress = EgressBatch(broker)
             interest_cache: dict = {}
@@ -809,6 +817,7 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                         break
 
                     if isinstance(message, Direct):
+                        n_direct += 1
                         # deliver to our own user only — never re-forward
                         # (broker/handler.rs:148-153); the single-shard
                         # device path's delivery-iff-owner rule keeps that
@@ -821,6 +830,7 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                                      to_user_only=True, egress=egress)
                         _emit_scalar_trace(message, egress, a0)
                     elif isinstance(message, Broadcast):
+                        n_broadcast += 1
                         # users only — prevents broadcast loops
                         # (broker/handler.rs:156-161)
                         pruned, _bad = topics.prune(message.topics)
@@ -870,12 +880,13 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
 
                 if stage_items:
                     results = device.stage_batch(
-                        [(m, r) for m, r, _ in stage_items])
+                        [(m, r) for m, r, _ in stage_items],
+                        source=identifier)
                     for (message, raw, pruned), res in zip(stage_items,
                                                            results):
                         if res == StageResult.FULL:
                             res = await _stage_with_backpressure(
-                                device, message, raw)
+                                device, message, raw, identifier)
                         if res == StageResult.STAGED:
                             _emit_staged_trace(message, device)
                             continue
@@ -891,6 +902,11 @@ async def broker_receive_loop(broker: "Broker", identifier: str,
                                             raw_topics=message.topics)
                         _emit_scalar_trace(message, egress, a0)
             finally:
+                metrics_mod.inc_each(
+                    (broker_metrics.LINK_RECEIVE_SECONDS,
+                     broker_metrics.LINK_IN_DIRECT,
+                     broker_metrics.LINK_IN_BROADCAST),
+                    (time.perf_counter() - t_batch, n_direct, n_broadcast))
                 try:
                     await egress.flush()
                 finally:
