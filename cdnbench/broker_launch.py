@@ -26,8 +26,13 @@ run.
 ``correct`` fails: ``stale`` (every step of the plane routes nothing),
 ``half`` (the plane routes the first half of each step's frames only),
 ``alter`` (one byte of every frame the plane routes is changed),
-``nolink`` (nothing is forwarded to another broker). The benchmark's own
-runs never plant anything.
+``nolink`` (nothing is forwarded to another broker). ``cost`` changes no
+byte and makes the broker dearer instead, for the check that
+``broker_cpu_us_per_delivery`` follows the brokers' cost: it burns
+``COST_US`` µs of the event loop's thread on the CPU (``cost:<µs>`` another
+amount; ``cost:0`` only counts) at every flush of a TCP+TLS stream
+(``AsyncioStream.write``/``writev``), and the exit record counts those
+flushes by second. The benchmark's own runs never plant anything.
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ DENSE_KERNEL = "delivery_matrix_kernel"
 MARKER = "spin_kernel"      # torch.cuda._sleep's kernel marks the window
 MARK_CYCLES = 1000
 NAME_CHARS = 96             # a device operation's name, as reported
+# the ``cost`` plant's burn a TLS flush: with 0.48 flushes a delivery in
+# hotshot_1k_2b.views_replay (a clean run on the H100's host) it adds
+# ~240 us to a delivery's ~250 us of broker CPU
+COST_US = 500
 
 
 class Window:
@@ -189,9 +198,57 @@ def control(window: Window) -> None:
             window.write({"error": repr(exc)})
 
 
-def plant(fault: str) -> None:
-    """Break the timed path underneath (see the module's docstring)."""
+class CostPlant:
+    """Burns ``cost_us`` of the calling thread's time on the CPU at each
+    flush of a TLS stream, spinning on the monotonic clock, and counts
+    those flushes by second of that clock (the harness's window is on the
+    same clock). It spins on wall time because the thread CPU clock of the
+    H100's host advances in 10 ms ticks, so a spin on it burns a whole
+    tick (there 2,000 spins of 200 us on it took 20 s)."""
+
+    def __init__(self, cost_us: float):
+        self.cost_us = cost_us
+        self.flushes = 0
+        self.burned_ns = 0
+        self.by_s: dict = {}
+
+    def burn(self) -> None:
+        self.flushes += 1
+        s = int(time.monotonic())
+        self.by_s[s] = self.by_s.get(s, 0) + 1
+        start = time.perf_counter_ns()
+        end = start + int(self.cost_us * 1e3)
+        now = start
+        while now < end:
+            now = time.perf_counter_ns()
+        self.burned_ns += now - start
+
+    def wrap(self, flush):
+        async def costly(stream, *args):
+            tls = getattr(stream, "_planted_tls", None)
+            if tls is None:
+                tls = stream.writer.get_extra_info("ssl_object") is not None
+                stream._planted_tls = tls
+            if tls:
+                self.burn()
+            return await flush(stream, *args)
+        return costly
+
+    def record(self) -> dict:
+        return dict(cost_us=self.cost_us, flushes=self.flushes,
+                    burned_s=self.burned_ns / 1e9, flushes_by_s=self.by_s)
+
+
+def plant(fault: str):
+    """Break the timed path underneath, or make it dearer (see the
+    module's docstring); the ``cost`` plant is returned for its record."""
     from pushcdn_tpu_torch.broker import device_plane
+    if fault == "cost" or fault.startswith("cost:"):
+        from pushcdn_tpu_torch.proto.transport.base import AsyncioStream
+        cost = CostPlant(float(fault[5:]) if ":" in fault else COST_US)
+        AsyncioStream.write = cost.wrap(AsyncioStream.write)
+        AsyncioStream.writev = cost.wrap(AsyncioStream.writev)
+        return cost
     if fault in ("stale", "half", "alter"):
         run_step = device_plane.DevicePlane._run_step
 
@@ -221,6 +278,7 @@ def plant(fault: str) -> None:
         handlers.route_broadcast = no_link
     else:
         raise SystemExit(f"unknown fault {fault!r}")
+    return None
 
 
 def main() -> None:
@@ -232,8 +290,7 @@ def main() -> None:
     if rest[:1] == ["--"]:
         rest = rest[1:]
     from pushcdn_tpu_torch.bin import broker
-    if fault:
-        plant(fault)
+    planted = plant(fault) if fault else None
     if trace:
         window = Window(rundir, name)
         window.wrap_dense()
@@ -246,6 +303,8 @@ def main() -> None:
         code = exc.code if isinstance(exc.code, int) else 1
     from cdnbench.common import forbidden_loaded
     out = {"code": code, "forbidden": forbidden_loaded(sys.modules)}
+    if planted is not None:
+        out["planted"] = planted.record()
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_available() \
             and torch.cuda.is_initialized():

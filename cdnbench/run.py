@@ -48,7 +48,7 @@ if __package__ in (None, ""):   # run as a script: python3 cdnbench/run.py
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from cdnbench import common, oracle, traffic  # noqa: E402
+from cdnbench import common, oracle, proctree, traffic  # noqa: E402
 
 LEAD_S = 1.5           # from "go" to the window's start (warm-up inside)
 DRAIN_S = 60.0         # the longest wait for deliveries after the window
@@ -161,10 +161,10 @@ class Child:
         threads, from /proc; None once it is gone."""
         try:
             with open(f"/proc/{self.proc.pid}/stat") as f:
-                fields = f.read().rpartition(")")[2].split()
+                own = proctree.parse_stat(f.read())["own"]
         except OSError:
             return None
-        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+        return own / os.sysconf("SC_CLK_TCK")
 
     def wait_exit(self, timeout: float) -> Optional[int]:
         """The exit code once the process ends on its own, or after
@@ -223,6 +223,7 @@ class Run:
         self.matched_in_window = 0
         self._lat = None
         self.cpu_cores: Dict[str, float] = {}
+        self.broker_trees: Dict[str, tuple] = {}
 
     # -- deliveries -------------------------------------------------------
 
@@ -295,6 +296,30 @@ class Run:
         if self.wl.get("loop") != "open" or not inside.any():
             return None
         return common.percentile((s["ns"] - s["ref"])[inside] / 1e6, 0.99)
+
+    def broker_tree_cores(self) -> Dict[str, Optional[float]]:
+        """Each broker's process tree's CPU over the window, in cores."""
+        out = {}
+        for name, (before, after) in self.broker_trees.items():
+            spent = proctree.cpu_s(before, after)
+            out[name] = None if spent is None else spent / self.window_s
+        return out
+
+    def planted_in_window(self) -> Dict[str, dict]:
+        """A planted cost's flushes inside the window (each second's
+        count weighted by its overlap with the window), per broker; empty
+        in the benchmark's own runs."""
+        lo, hi = self.t0 / 1e9, self.t_end / 1e9
+        out = {}
+        for name, ex in self.exits.items():
+            got = ex.get("planted")
+            if not got:
+                continue
+            n = sum(c * max(0.0, min(int(s) + 1, hi) - max(int(s), lo))
+                    for s, c in got["flushes_by_s"].items())
+            out[name] = dict(cost_us=got["cost_us"], flushes=got["flushes"],
+                             flushes_in_window=n)
+        return out
 
     # -- traces -----------------------------------------------------------
 
@@ -490,12 +515,17 @@ def deploy_and_drive(run: Run, args, rundir: str, kids: Dict[str, Child],
     run.setup_s = time.monotonic() - t_start + LEAD_S
     sleep_until(t0)
     cpu_before = cpu_sample(kids)
+    brokers = {n: kids[n].proc.pid for n in metrics_ports}
+    trees_before = proctree.sample(brokers)
     before = scrape_all(metrics_ports)
     if run.trace:
         for name in metrics_ports:
             kids[name].send("start")
     sleep_until(t_end)
     cpu_after = cpu_sample(kids)
+    trees_after = proctree.sample(brokers)
+    run.broker_trees = {n: (trees_before[n], trees_after[n])
+                        for n in brokers}
     after = scrape_all(metrics_ports)
     run.cpu_cores = {n: (cpu_after[n] - cpu_before[n]) / run.window_s
                      for n in cpu_before
@@ -693,6 +723,8 @@ def main(argv=None) -> int:
         delivery_p99_ms_all=p99, generator_late_p99_ms=late,
         views_closed=run.views_closed_in_window(),
         cpu_cores_in_window=run.cpu_cores, generators=run.generators,
+        broker_tree_cores=run.broker_tree_cores(),
+        planted=run.planted_in_window(),
         serving=run.serving, exit_lines=run.exit_lines)))
     if args.trace:
         metrics = read_metrics(run, "per_layer", "layers")

@@ -13,7 +13,7 @@ import pytest
 from cdnbench import common
 
 HERE = common.HERE
-YARDSTICK = ("oracle.py", "roofline.py", "common.py")
+YARDSTICK = ("oracle.py", "roofline.py", "common.py", "proctree.py")
 
 
 def sources():
