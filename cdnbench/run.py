@@ -14,7 +14,9 @@ cores the deployment's ``cpus`` gives it. It waits until the planes are
 warm and every user is connected, opens the window for ``--seconds``,
 lets the traffic run, waits for every delivery due, and stops every
 process it started. Each process's CPU use over the window is printed on
-stderr beside the run's other readings.
+stderr beside the run's other readings. A host probe (``hostprobe.py``)
+runs a fixed unit of work beside the brokers, on their cores, through
+set-up and the window, so the run can read how fast the host was.
 
 ``correct`` compares every delivery every user received with what the
 oracle (``oracle.py``) says each is due, and each check of the traffic's
@@ -48,7 +50,7 @@ if __package__ in (None, ""):   # run as a script: python3 cdnbench/run.py
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from cdnbench import common, oracle, proctree, traffic  # noqa: E402
+from cdnbench import common, hostprobe, oracle, proctree, traffic  # noqa
 
 LEAD_S = 1.5           # from "go" to the window's start (warm-up inside)
 DRAIN_S = 60.0         # the longest wait for deliveries after the window
@@ -141,6 +143,10 @@ class Child:
                     return ev
         return None
 
+    def all(self, event: str) -> List[dict]:
+        with self._cv:
+            return [ev for ev in self.events if ev.get("event") == event]
+
     def log_line(self, what: str) -> Optional[dict]:
         """The JSON of the last ``<what> {...}`` line in the log."""
         found = None
@@ -224,6 +230,8 @@ class Run:
         self._lat = None
         self.cpu_cores: Dict[str, float] = {}
         self.broker_trees: Dict[str, tuple] = {}
+        self.probe_units: List[dict] = []
+        self.probe_cpu_s: Optional[float] = None
 
     # -- deliveries -------------------------------------------------------
 
@@ -304,6 +312,29 @@ class Run:
             spent = proctree.cpu_s(before, after)
             out[name] = None if spent is None else spent / self.window_s
         return out
+
+    def probe_reading(self) -> Optional[dict]:
+        """The host probe over the window: its units that ended in it, the
+        median of their wall µs (``p_run_us``) and of each part's, and its
+        CPU µs a unit from ``/proc`` at the window's ends; None without a
+        probe or a unit.
+
+        ``p_run_us`` is a median of wall times, not the CPU a unit: the
+        host's CPU clock moves in 10 ms ticks, and a unit of a few ms is
+        charged a whole tick or none, so over 15 s windows of the probe
+        alone its CPU a unit read 1.05-1.29 times its median wall time
+        (PERF.md, section 2)."""
+        if not self.probe_units:
+            return None
+        walls = np.array([u["us"] for u in self.probe_units])
+        cpu = self.probe_cpu_s
+        return dict(
+            units=len(self.probe_units),
+            p_run_us=float(np.median(walls.sum(axis=1))),
+            part_wall_us_median=dict(zip(
+                hostprobe.PARTS, np.median(walls, axis=0).tolist())),
+            cpu_us_per_unit=None if cpu is None
+            else 1e6 * cpu / len(self.probe_units))
 
     def planted_in_window(self) -> Dict[str, dict]:
         """A planted cost's flushes inside the window (each second's
@@ -402,10 +433,30 @@ def cpu_sample(kids: Dict[str, Child]) -> Dict[str, Optional[float]]:
     return {n: k.cpu_s() for n, k in kids.items()}
 
 
+def stop_probe(run: Run, kid: Child) -> None:
+    """Stops the host probe and keeps its units that ended in the window;
+    a probe that held the program, torch or JAX fails the run."""
+    kid.send("stop")
+    done = kid.wait_event("done", time.monotonic() + 30)
+    held = sorted(set(done["modules"]) & {*common.FORBIDDEN_MODULES,
+                                          common.PROGRAM, "torch"})
+    if held:
+        raise Failure(f"the host probe loaded {held}")
+    if kid.wait_exit(10) != 0:
+        raise Failure(f"the host probe exited with {kid.proc.returncode}:\n"
+                      f"{tail(kid.log)}")
+    run.probe_units = [ev for ev in kid.all("unit")
+                       if run.t0 <= ev["end_ns"] < run.t_end]
+
+
 def deploy_and_drive(run: Run, args, rundir: str, kids: Dict[str, Child],
                      t_start: float) -> None:
     cfg, env = run.cfg, child_env()
     env.update(cfg.get("env", {}))
+    if args.probe:
+        kids["probe"] = Child("probe", [sys.executable, "-m",
+                                        "cdnbench.hostprobe"], rundir, env,
+                              stdout_events=True, cpus=cpus_for(run, "probe"))
     db = os.path.join(rundir, "discovery.sqlite")
     common_flags = ["--discovery-endpoint", db,
                     "--user-transport", cfg["user_transport"],
@@ -505,6 +556,8 @@ def deploy_and_drive(run: Run, args, rundir: str, kids: Dict[str, Child],
     for kid in gens:
         kid.wait_event("ready", deadline)
     run.connect_s = max(k.last("ready")["connect_s"] for k in gens)
+    if args.probe:
+        kids["probe"].wait_event("ready", time.monotonic() + 30)
 
     # the window
     t0 = now_ns() + int(LEAD_S * 1e9)
@@ -531,10 +584,14 @@ def deploy_and_drive(run: Run, args, rundir: str, kids: Dict[str, Child],
                      for n in cpu_before
                      if cpu_before[n] is not None
                      and cpu_after.get(n) is not None}
+    if "probe" in run.cpu_cores:
+        run.probe_cpu_s = cpu_after["probe"] - cpu_before["probe"]
     if run.trace:
         for name in metrics_ports:
             kids[name].send("stop")
     run.scrapes = {n: (before[n], after[n]) for n in metrics_ports}
+    if args.probe:
+        stop_probe(run, kids["probe"])
 
     # every delivery due, or the wait's end
     want = run.expected_total
@@ -652,6 +709,9 @@ def main(argv=None) -> int:
     # generator processes in place of the deployment's
     p.add_argument("--generators", type=int, default=None,
                    help=argparse.SUPPRESS)
+    # a check of the host probe's own cost: the run without it
+    p.add_argument("--probe", type=int, choices=(0, 1), default=1,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     if importlib.util.find_spec(common.PROGRAM) is None:
@@ -724,6 +784,7 @@ def main(argv=None) -> int:
         views_closed=run.views_closed_in_window(),
         cpu_cores_in_window=run.cpu_cores, generators=run.generators,
         broker_tree_cores=run.broker_tree_cores(),
+        probe=run.probe_reading(),
         planted=run.planted_in_window(),
         serving=run.serving, exit_lines=run.exit_lines)))
     if args.trace:
